@@ -1,0 +1,107 @@
+"""Dense projected Levenberg-Marquardt with box constraints, batch-first.
+
+Port of grasptrajopt_tpu/opt/lm.py `make_box_lm_solver` for residual-only
+problems (no `value_fn` term):
+
+    min_x ||r(x, p)||^2   s.t.  lo <= x <= hi
+
+Gauss-Newton Hessian, Marquardt diagonal damping adapted by a gain ratio,
+trial steps at several scales projected onto the box; the best candidate
+is accepted when it lowers the cost. The residual is written for ONE
+problem and mapped over the batch with `torch.func.vmap`; its Jacobian
+comes from `jacfwd(has_aux=True)`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from grasptrajopt_tpu_torch.ops.smallchol import (
+    MAX_UNROLL_N,
+    cholesky_small,
+    cholesky_solve_small,
+)
+
+
+class LMConfig(NamedTuple):
+    iterations: int = 50
+    lambda_init: float = 1e-3
+    lambda_decrease: float = 0.35
+    lambda_increase: float = 4.0
+    lambda_min: float = 1e-9
+    lambda_max: float = 1e8
+    jitter: float = 1e-9
+    # trial step scales, evaluated together each iteration
+    alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1, 0.03)
+
+
+def make_box_lm_solver(residual_fn: Callable, config: LMConfig = LMConfig()):
+    """Build `solve(x0 (B, n), lo (n,), hi (n,), params) -> (x, cost, aux)`.
+
+    residual_fn(x (n,), params_b) -> (R,) for ONE problem; `params` holds
+    per-problem tensors with leading dim B.
+    """
+
+    def solve(x0, lo, hi, params):
+        x = torch.minimum(torch.maximum(x0, lo), hi)
+        B, n = x.shape
+        eye = torch.eye(n, dtype=x.dtype, device=x.device)
+        alphas = torch.tensor(config.alphas, dtype=x.dtype, device=x.device)
+
+        def lin(xx, p):
+            def f(v):
+                r = residual_fn(v, p)
+                return r, r
+
+            return jacfwd(f, has_aux=True)(xx)
+
+        def cost_one(xx, p):
+            r = residual_fn(xx, p)
+            return torch.sum(r * r)
+
+        cand_cost = vmap(vmap(cost_one, in_dims=(0, None)), in_dims=(0, 0))
+        c = vmap(cost_one)(x, params)
+        lam = torch.full((B,), config.lambda_init, dtype=x.dtype, device=x.device)
+        for _ in range(config.iterations):
+            J, r = vmap(lin)(x, params)  # (B, R, n), (B, R)
+            c_now = torch.sum(r * r, dim=-1)
+            g = torch.einsum("bri,br->bi", J, r)
+            H = torch.einsum("bri,brj->bij", J, J)
+            scale = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=config.jitter)
+            A = H + lam[:, None, None] * torch.diag_embed(scale) + config.jitter * eye
+            if n <= MAX_UNROLL_N:
+                dx = -cholesky_solve_small(cholesky_small(A), g)
+            else:
+                dx = -torch.linalg.solve(A, g)
+
+            cands = torch.minimum(
+                torch.maximum(x[:, None] + alphas[None, :, None] * dx[:, None], lo), hi
+            )  # (B, A, n)
+            cand_costs = cand_cost(cands, params)  # (B, A)
+            best = torch.argmin(cand_costs, dim=1)
+            x_trial = cands[torch.arange(B, device=x.device), best]
+            c_trial = cand_costs[torch.arange(B, device=x.device), best]
+            step = x_trial - x
+            pred = -2.0 * torch.sum(g * step, dim=-1) - torch.sum(
+                step * (A @ step[..., None])[..., 0], dim=-1
+            )
+            actual = c_now - c_trial
+
+            accept = (actual > 0.0) & torch.isfinite(c_trial)
+            # the gain ratio only sets how fast lambda drops
+            ratio = actual / torch.clamp(pred, min=1e-12)
+            good = accept & (ratio > 0.25)
+            x = torch.where(accept[:, None], x_trial, x)
+            c = torch.where(accept, c_trial, c_now)
+            lam = torch.where(
+                good,
+                lam * config.lambda_decrease,
+                torch.where(accept, lam * 0.7, lam * config.lambda_increase),
+            )
+            lam = torch.clamp(lam, config.lambda_min, config.lambda_max)
+        return x, c, {"lambda": lam}
+
+    return solve
