@@ -1,9 +1,10 @@
 """Carry the JAX package's model state and solver parameters across.
 
 There are no learned weights: the "parameters" are the robot model's
-arrays and the solver's parameter dict. Both functions take plain numpy
-arrays (callers holding JAX objects convert with `np.asarray`), so this
-module, like the rest of the port, never imports JAX.
+arrays, the solver's parameter dict and points mode's scene sets. Every
+function takes plain numpy arrays (callers holding JAX objects convert
+with `np.asarray`), so this module, like the rest of the port, never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +50,22 @@ def robot_from_numpy(state: Mapping, device="cpu", dtype=torch.float32) -> GTORo
             resolution=float(state["grid_resolution"]),
         )
     return robot
+
+
+def scene_sets_from_numpy(obstacle, target, device="cpu", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Points mode's scene sets as the planner's shared params: `obstacle`
+    and `target` are one `ScenePointSet` each (fields.scene_points, or the
+    JAX package's, which holds the same arrays) or same-length sequences of
+    them, one per object, stacked as (C, K, 3). Also the validity masks
+    (C, K) of the fixed-capacity sets (rows past `count` are padding)."""
+    out = {}
+    for key, sets in (("scene", obstacle), ("target", target)):
+        sets = list(sets) if isinstance(sets, (list, tuple)) else [sets]
+        K = sets[0].points.shape[0]
+        out[f"{key}_points"] = torch.as_tensor(np.stack([s.points for s in sets]), dtype=dtype, device=device)
+        out[f"{key}_normals"] = torch.as_tensor(np.stack([s.normals for s in sets]), dtype=dtype, device=device)
+        out[f"{key}_mask"] = torch.as_tensor(np.stack([np.arange(K) < s.count for s in sets]), device=device)
+    return out
 
 
 _INDEX_KEYS = ("field_base", "goal_seed")

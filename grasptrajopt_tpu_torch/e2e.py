@@ -16,6 +16,25 @@ fields -> IK -> plan) on the port:
      goal slots = pre-filter keep & IK found (all slots where none
      survives).
 
+After the IK screen, `PerceptionToPlan.pergoal` runs the JAX pipeline's
+per-goal tiers (planning/pipeline.py `_plan_pergoal_exact` and the
+rescue's `plan_pergoal_batch`) for every object of the batch, each goal
+slot its own single-goal problem:
+
+  - exact tier: points mode against each object's voxel-downsampled scene
+    point sets (host numpy from its depth image), 12 single-pass
+    iterations at obstacle weight 40; two K2 launches per pass for the
+    whole batch;
+  - rescue tier: field mode at the main planner's flavor, on the per-object
+    stacked tables of phase 1;
+  - each tier's clearance: the minimum signed distance of its plans' body
+    points to the obstacle set, resting contacts at the start left out
+    (one K3 launch for both tiers).
+
+The JAX pipeline runs these tiers only for objects whose plan fails its
+replay scorer (planning/evaluate.py, not ported yet), so here both run
+over every object.
+
 Observations come from the synthetic tabletop scenes on the host
 (`collect_observations`); everything after that runs on one device.
 """
@@ -29,12 +48,16 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from grasptrajopt_tpu_torch.convert import scene_sets_from_numpy
 from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import (
     TwoCostFields,
     build_two_cost_fields,
+    first_true_indices,
     signed_distance_to_cloud,
 )
+from grasptrajopt_tpu_torch.fields.scene_points import scene_point_sets_from_depth
+from grasptrajopt_tpu_torch.ops import nn
 from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
@@ -65,6 +88,17 @@ class SliceConfig:
     final_trust: bool = True
     standoff_distance: float = -0.1
     axis_standoff: str = "z"
+    # the per-goal exact tier (the JAX pipeline's escalation defaults)
+    exact_iterations: int = 12  # max(12, plan_iterations)
+    exact_obstacle_weight: float = 40.0
+    exact_points: int = 4096  # obstacle set capacity
+    exact_target_points: int = 1024
+    exact_resolution: float = 0.02  # voxel of the downsample
+
+    @property
+    def exact_epsilon(self) -> float:
+        """The field band widened by half a downsample voxel."""
+        return self.field_epsilon + 0.5 * self.exact_resolution
 
 
 @dataclass
@@ -119,18 +153,41 @@ def collect_observations(cfg: SliceConfig) -> Observations:
     )
 
 
-def reach_fractions(robot, link_ee, Q_full, tf_goal, goal_mask) -> Dict[str, float]:
-    """Share of objects whose final pose reaches one of their kept goals
-    within the IK gates (1 cm / 5 deg) and the plan gates (2 cm / 10 deg).
-    Q_full (B, T, ndof); tf_goal (B, G, 4, 4) base frame."""
+def _reached(robot, link_ee, Q_full, tf_goal, goal_mask):
+    """Per problem, whether its final pose reaches one of its kept goals
+    within the IK gates (1 cm / 5 deg) and within the plan gates (2 cm /
+    10 deg). Q_full (B, T, ndof); tf_goal (B, G, 4, 4) base frame."""
     T_end = robot.get_global_link_transform(link_ee, Q_full[:, -1])
     d = torch.linalg.vector_norm(tf_goal[..., :3, 3] - T_end[:, None, :3, 3], dim=-1)
     rot = qangle_deg(r2quat(tf_goal[..., :3, :3]), r2quat(T_end[:, None, :3, :3]))
     strict = ((d < 0.01) & (rot < 5.0) & goal_mask).any(dim=1)
     loose = ((d < 0.02) & (rot < 10.0) & goal_mask).any(dim=1)
+    return strict, loose
+
+
+def reach_fractions(robot, link_ee, Q_full, tf_goal, goal_mask) -> Dict[str, float]:
+    """Share of objects whose final pose reaches one of their kept goals
+    under the IK gates and the plan gates (see `_reached`)."""
+    strict, loose = _reached(robot, link_ee, Q_full, tf_goal, goal_mask)
     return {
         "reached_frac_ik_gates": float(strict.float().mean()),
         "reached_frac_plan_gates": float(loose.float().mean()),
+    }
+
+
+def pergoal_reach_fractions(robot, link_ee, Q_full, tf_goal, n_goals) -> Dict[str, float]:
+    """Share of objects with at least one per-goal plan that reaches its
+    own goal under the IK gates and the plan gates. Q_full (C, G, T, ndof);
+    tf_goal (C, G, 4, 4) base frame with the n_goals (C,) real goals first."""
+    C, G = tf_goal.shape[:2]
+    real = torch.arange(G, device=tf_goal.device)[None, :] < n_goals[:, None]
+    strict, loose = _reached(
+        robot, link_ee, Q_full.reshape((C * G,) + Q_full.shape[2:]),
+        tf_goal.reshape(C * G, 1, 4, 4), real.reshape(C * G, 1),
+    )
+    return {
+        "reached_frac_ik_gates": float(strict.reshape(C, G).any(dim=1).float().mean()),
+        "reached_frac_plan_gates": float(loose.reshape(C, G).any(dim=1).float().mean()),
     }
 
 
@@ -162,6 +219,11 @@ class PerceptionToPlan:
         )
         self.solvers = self.planner.setup_optimization(
             goal_size=cfg.goal_capacity, use_standoff=True, axis_standoff=cfg.axis_standoff
+        )
+        self.exact_planner = GTOPlanner(
+            robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, obstacle_mode="points",
+            standoff_distance=cfg.standoff_distance, iterations=cfg.exact_iterations,
+            obstacle_weight=cfg.exact_obstacle_weight, sdf_epsilon=cfg.exact_epsilon, T=cfg.T,
         )
 
     def tensors(self, obs: Observations) -> Dict[str, torch.Tensor]:
@@ -261,4 +323,83 @@ class PerceptionToPlan:
             "X0": X0, "found": found, "err_pos": err_pos, "err_rot": err_rot, "q_sols": q_sols,
             "goal_mask": goal_mask, "Q": Q, "cost": cost, "aux": aux,
             "seconds": {"fields": t1 - t0, "ik": t2 - t1, "plan": t3 - t2},
+        }
+
+    def scene_sets(self, obs: Observations) -> Dict[str, torch.Tensor]:
+        """The exact tier's per-object scene point sets on the host (the
+        JAX pipeline's settings), stacked (C, K, 3) on the device."""
+        cfg = self.cfg
+        sets = [
+            scene_point_sets_from_depth(
+                obs.depth[b], obs.K, obs.cam_pose[b], obs.target_mask[b],
+                capacity_obstacle=cfg.exact_points, capacity_target=cfg.exact_target_points,
+                depth_threshold=cfg.depth_threshold, resolution=cfg.exact_resolution,
+            )
+            for b in range(obs.depth.shape[0])
+        ]
+        return scene_sets_from_numpy(
+            [o for o, _ in sets], [t for _, t in sets], self.robot.device, self.robot.dtype
+        )
+
+    def clearance(self, Q_full, sets, base_position):
+        """(C, G) minimum signed distance of each plan's body points
+        Q_full (C, G, T, ndof) to its object's obstacle set: one K3 launch
+        (distance and index under the set's validity mask), the sign from
+        the nearest sample's normal as in points mode. Points already
+        inside at step 0 are left out, as the JAX replay scorer leaves out
+        such resting contacts (planning/evaluate.py check_plan_collision)."""
+        C = Q_full.shape[0]
+        pts = self.robot.fk_surface_points(Q_full, base_position)  # (C, G, T, P, 3)
+        q = pts.reshape(C, -1, 3)
+        d2, idx = nn.min_sqdist(q, sets["scene_points"], sets["scene_mask"])
+        rows = idx.long()[..., None].expand(q.shape)
+        nearest = torch.gather(sets["scene_points"], 1, rows)
+        normal = torch.gather(sets["scene_normals"], 1, rows)
+        sd, _ = nn.signed_distance_from_nearest(q, d2, nearest, normal)
+        sd = sd.reshape(pts.shape[:-1])
+        resting = sd[..., :1, :] < 0  # inside at step 0
+        return torch.where(resting, torch.full_like(sd, float("inf")), sd).amin(dim=(-2, -1))
+
+    def pergoal(self, obs: Observations, out: Dict) -> Dict:
+        """The per-goal tiers after the slice's IK screen (`run`'s output):
+        each object's kept and found goal slots compacted to the front (all
+        slots where none survives), one single-goal problem per slot, each
+        starting from its own IK solution. Host-clock seconds per part
+        after a device synchronize."""
+        cfg, robot = self.cfg, self.robot
+        dev = robot.device
+        x = out["inputs"]
+        B, G = out["goal_mask"].shape
+        _sync(dev)
+        t0 = time.perf_counter()
+        sets = self.scene_sets(obs)
+        order, _ = first_true_indices(out["goal_mask"], G)
+        n_goals = out["goal_mask"].sum(dim=1)
+        tf_goal = torch.gather(x["tf_goal"], 1, order[..., None, None].expand(B, G, 4, 4))
+        q_sols = torch.gather(out["q_sols"], 1, order[..., None].expand(out["q_sols"].shape))
+        base = x["base_position"]
+        _sync(dev)
+        t1 = time.perf_counter()
+        Q_exact, cost_exact, _ = self.exact_planner.plan_pergoal_batch(
+            self.qc, tf_goal, n_goals, q_sols, base, True, cfg.axis_standoff, scene=sets,
+        )
+        _sync(dev)
+        t2 = time.perf_counter()
+        Q_rescue, cost_rescue, _ = self.planner.plan_pergoal_batch(
+            self.qc, tf_goal, n_goals, q_sols, base, True, cfg.axis_standoff,
+            fields=(out["tables"], out["field_base"]),
+        )
+        _sync(dev)
+        t3 = time.perf_counter()
+        Q_both = torch.stack([Q_exact, Q_rescue], dim=1)  # (C, 2, G, T, ndof)
+        sd = self.clearance(Q_both.reshape((B, 2 * G) + Q_both.shape[3:]), sets, base)
+        _sync(dev)
+        t4 = time.perf_counter()
+        sd = sd.reshape(B, 2, G)
+        return {
+            "sets": sets, "tf_goal": tf_goal, "n_goals": n_goals, "q_sols": q_sols,
+            "Q_exact": Q_exact, "cost_exact": cost_exact,
+            "Q_rescue": Q_rescue, "cost_rescue": cost_rescue,
+            "sd_exact": sd[:, 0], "sd_rescue": sd[:, 1],
+            "seconds": {"scene_sets": t1 - t0, "exact": t2 - t1, "rescue": t3 - t2, "clearance": t4 - t3},
         }

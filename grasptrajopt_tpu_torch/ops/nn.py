@@ -1,12 +1,26 @@
-"""Exact-fp32 brute-force minimum squared distance: kernel K1.
+"""Exact-fp32 brute-force nearest neighbours: kernels K1, K2 and K3.
 
-Port of grasptrajopt_tpu/ops/nn.py (`min_d2_batched_pallas`,
-`_pack_refT`, `min_sqdist_d2`). The dense SDF field build asks, for each
-of M query points, the squared distance to the nearest valid point of
-each of B reference clouds. On the card this is the hand-written CUDA
-kernel `csrc/min_d2.cu`; `min_d2_batched_reference` is the same function
-in plain torch beside it. `min_d2_batched` takes the plain version ONLY
-for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+Port of grasptrajopt_tpu/ops/nn.py.
+
+K1 (`min_d2_batched`, `_pack_refT`, `min_sqdist_d2`): the dense SDF field
+build asks, for each of M query points, the squared distance to the
+nearest valid point of each of B reference clouds. On the card this is
+the hand-written CUDA kernel `csrc/min_d2.cu`.
+
+K2 and K3 (`nearest_batched`, one kernel `csrc/nearest.cu` in two modes):
+per query, the squared distance to the nearest valid reference point AND
+its index; K2 also returns that point and its normal (points mode's signed
+distance, `signed_distance_with_dir`), K3 (`min_sqdist`) only the pair
+(d2, index) under a validity mask.
+
+Each kernel has its plain-torch version beside it (`*_reference`). The
+wrappers take the plain version ONLY for tensors on the CPU; a CUDA
+tensor launches the kernel or raises.
+
+Ties: the nearest point is the FIRST index among equally near points, in
+kernel and plain version alike. The JAX package's TPU kernel K2 instead
+averages the tied points and normals (its one-hot matmul), while its CPU
+path takes the first argmin; the port follows the latter everywhere.
 
 Distances are always the three broadcast subtract-squares in the working
 precision, never the |q|^2 + |r|^2 - 2 q.r expansion, which cancels
@@ -27,8 +41,11 @@ from grasptrajopt_tpu_torch.ops import cuda_build
 # penalty of an invalid reference point (the JAX package's _PAL_BIG)
 PENALTY_BIG = 3.0e38
 
-# number of K1 kernel launches made by `min_d2_batched` in this process
+# kernel launches in this process: K1 (`min_d2_batched`), K2
+# (`nearest_batched` with normals) and K3 (`nearest_batched` without)
 min_d2_launches = 0
+nearest_launches = 0
+min_sqdist_launches = 0
 
 _REFERENCE_CHUNK_ELEMS = 1 << 24  # (batch x queries x points) per plain chunk
 
@@ -78,6 +95,17 @@ def _declare(lib):
     lib.gto_cuda_error_string.restype = ctypes.c_char_p
 
 
+def _declare_nearest(lib):
+    lib.gto_nearest.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.gto_nearest.restype = ctypes.c_int
+    lib.gto_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gto_cuda_error_string.restype = ctypes.c_char_p
+
+
 def _check_shapes(q, rT):
     if rT.dim() != 3 or rT.shape[1] != 4:
         raise ValueError(f"rT must be (B, 4, N), got {tuple(rT.shape)}")
@@ -86,7 +114,18 @@ def _check_shapes(q, rT):
     if q.dim() == 3 and q.shape[0] != rT.shape[0]:
         raise ValueError(f"per-cloud queries {tuple(q.shape)} do not match rT {tuple(rT.shape)}")
     if q.shape[-2] == 0 or rT.shape[2] == 0:
-        raise ValueError("K1 needs at least one query and one reference point")
+        raise ValueError("the kernels need at least one query and one reference point")
+
+
+def _check_cuda(name, *tensors):
+    """A CUDA launch takes contiguous float32 tensors on one device."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name} needs its tensors on one CUDA device, got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
 def min_d2_batched(q, rT):
@@ -101,12 +140,7 @@ def min_d2_batched(q, rT):
     _check_shapes(q, rT)
     if q.device.type == "cpu" and rT.device.type == "cpu":
         return min_d2_batched_reference(q, rT)
-    if not (q.is_cuda and rT.is_cuda and q.device == rT.device):
-        raise ValueError(f"K1 needs q and rT on one CUDA device, got {q.device} and {rT.device}")
-    if q.dtype != torch.float32 or rT.dtype != torch.float32:
-        raise TypeError(f"K1 takes float32, got {q.dtype} and {rT.dtype}")
-    if not (q.is_contiguous() and rT.is_contiguous()):
-        raise ValueError("K1 takes contiguous tensors")
+    _check_cuda("K1", q, rT)
     B, _, N = rT.shape
     M = q.shape[-2]
     out = torch.empty((B, M), dtype=torch.float32, device=q.device)
@@ -130,3 +164,182 @@ def min_sqdist_d2(query, ref, ref_mask=None):
     launch on the card."""
     rT = _pack_refT(ref, ref_mask)
     return min_d2_batched(query.to(rT.dtype).contiguous(), rT)
+
+
+# -- K2 / K3: nearest point, its index, normal --------------------------------
+
+
+def nearest_batched_reference(q, rT, normals=None):
+    """Plain-torch K2 / K3: q (M, 3) shared or (C, M, 3) per set; rT
+    (C, 4, N) (see `_pack_refT`); normals (C, N, 3) or None.
+
+    Returns d2 (C, M) = max(0, min_n (|q - r_n|^2 + pen_n)) and its first
+    argmin idx (C, M) int32; with normals also the nearest point (C, M, 3)
+    and its normal (C, M, 3), copied from rT's rows and `normals`.
+    Chunked over M like `min_d2_batched_reference`.
+    """
+    C, _, N = rT.shape
+    qb = q if q.dim() == 3 else q[None]
+    M = qb.shape[1]
+    rx, ry, rz, pen = (rT[:, i, None, :] for i in range(4))  # (C, 1, N)
+    d2 = torch.empty((C, M), dtype=rT.dtype, device=rT.device)
+    idx = torch.empty((C, M), dtype=torch.long, device=rT.device)
+    chunk = max(1, _REFERENCE_CHUNK_ELEMS // max(C * N, 1))
+    for m0 in range(0, M, chunk):
+        qc = qb[:, m0 : m0 + chunk]
+        acc = (qc[..., 0:1] - rx) ** 2
+        acc = acc + (qc[..., 1:2] - ry) ** 2
+        acc = acc + (qc[..., 2:3] - rz) ** 2
+        acc = acc + pen
+        # torch.min over a dim returns the first index of the minimum
+        d2[:, m0 : m0 + chunk], idx[:, m0 : m0 + chunk] = torch.min(acc, dim=-1)
+    d2 = torch.clamp(d2, min=0.0)
+    if normals is None:
+        return d2, idx.to(torch.int32)
+    pt = torch.gather(rT[:, :3], 2, idx[:, None, :].expand(C, 3, M)).transpose(1, 2)
+    nm = torch.gather(normals, 1, idx[..., None].expand(C, M, 3))
+    return d2, idx.to(torch.int32), pt, nm
+
+
+def nearest_batched(q, rT, normals=None):
+    """K2 (with normals) or K3 (without): see `nearest_batched_reference`
+    for shapes and outputs. One launch covers all C sets.
+
+    CPU tensors take the plain version. CUDA tensors must be contiguous
+    float32 on one device and launch `csrc/nearest.cu`; anything else
+    raises.
+    """
+    global nearest_launches, min_sqdist_launches
+    _check_shapes(q, rT)
+    C, _, N = rT.shape
+    if normals is not None and tuple(normals.shape) != (C, N, 3):
+        raise ValueError(f"normals must be {(C, N, 3)}, got {tuple(normals.shape)}")
+    tensors = (q, rT) if normals is None else (q, rT, normals)
+    if all(t.device.type == "cpu" for t in tensors):
+        return nearest_batched_reference(q, rT, normals)
+    name = "K3" if normals is None else "K2"
+    _check_cuda(name, *tensors)
+    M = q.shape[-2]
+    dev = q.device
+    d2 = torch.empty((C, M), dtype=torch.float32, device=dev)
+    idx = torch.empty((C, M), dtype=torch.int32, device=dev)
+    pt = nm = None
+    if normals is not None:
+        pt = torch.empty((C, M, 3), dtype=torch.float32, device=dev)
+        nm = torch.empty((C, M, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load("nearest", _declare_nearest)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gto_nearest(
+            q.data_ptr(), 3 * M if q.dim() == 3 else 0, rT.data_ptr(),
+            None if normals is None else normals.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(),
+            None if pt is None else pt.data_ptr(), None if nm is None else nm.data_ptr(),
+            C, M, N, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.gto_cuda_error_string(err).decode()}")
+    if normals is None:
+        min_sqdist_launches += 1
+        return d2, idx
+    nearest_launches += 1
+    return d2, idx, pt, nm
+
+
+def _batched(points, ref, ref_mask=None):
+    """Shape adapter of the public K2 / K3 functions. Batch-first: points
+    (C, ..., 3) against C sets ref (C, N, 3); or the JAX package's shapes:
+    points (..., 3) against one set ref (K, 3). Returns (q (C, M, 3), rT,
+    the output's leading shape)."""
+    single = ref.dim() == 2
+    if single:
+        ref = ref[None]
+        ref_mask = None if ref_mask is None else ref_mask[None]
+    lead = points.shape[:-1]
+    q = points.reshape(ref.shape[0], -1, 3).to(ref.dtype).contiguous()
+    return q, _pack_refT(ref, ref_mask), lead
+
+
+def _nearest_point_normal(batched_fn, points, ref, normals):
+    q, rT, lead = _batched(points, ref)
+    nb = (normals[None] if normals.dim() == 2 else normals).to(rT.dtype).contiguous()
+    d2, _, pt, nm = batched_fn(q, rT, nb)
+    return d2.reshape(lead), pt.reshape(lead + (3,)), nm.reshape(lead + (3,))
+
+
+def nearest_point_normal(points, ref, normals):
+    """K2: (d2, nearest point, nearest normal) of points against padded
+    reference sets with per-point normals (pad rows far away, e.g.
+    PAD_COORD, never win). Shapes as in `_batched`; one launch."""
+    return _nearest_point_normal(nearest_batched, points, ref, normals)
+
+
+def nearest_point_normal_reference(points, ref, normals):
+    """Plain-torch `nearest_point_normal`."""
+    return _nearest_point_normal(nearest_batched_reference, points, ref, normals)
+
+
+def min_sqdist(query, ref, ref_mask=None):
+    """K3: (d2, first argmin int32) of queries against reference sets
+    under an optional validity mask ((N,) or (C, N) bool). Shapes as in
+    `_batched`. An all-invalid set gives d2 >= 1e38 and index 0."""
+    q, rT, lead = _batched(query, ref, ref_mask)
+    d2, idx = nearest_batched(q, rT)
+    return d2.reshape(lead), idx.reshape(lead)
+
+
+def min_sqdist_reference(query, ref, ref_mask=None):
+    """Plain-torch `min_sqdist`."""
+    q, rT, lead = _batched(query, ref, ref_mask)
+    d2, idx = nearest_batched_reference(q, rT)
+    return d2.reshape(lead), idx.reshape(lead)
+
+
+def signed_distance_from_nearest(points, d2, nearest, normal, lateral_margin=0.05):
+    """(sd, d(sd)/dp) from a query's nearest sample and that sample's
+    normal (see `signed_distance_with_dir` for the sign rule)."""
+    diff = points - nearest
+    d_n = torch.sum(diff * normal, dim=-1)
+    lat2 = torch.clamp(d2 - d_n * d_n, min=0.0)
+    inside = (d_n < 0.0) & (lat2 <= lateral_margin * lateral_margin)
+    sign = torch.where(inside, -1.0, 1.0).to(d2.dtype)
+    sd = sign * torch.sqrt(torch.clamp(d2, min=1e-18))
+    return sd, diff / sd[..., None]
+
+
+def signed_distance_with_dir(points, ref, normals, lateral_margin=0.05):
+    """(sd, d(sd)/dp) of points against padded point sets with per-point
+    normals, from ONE K2 launch: callers contract the spatial gradient
+    with their own point Jacobians.
+
+    Sign: negative (inside) only when the query lies behind its nearest
+    sample's normal AND within `lateral_margin` of that sample's surface
+    footprint. A bare normal-dot sign calls everything behind the tangent
+    plane inside, e.g. the robot base below a tabletop's top sheet, far to
+    its side.
+    """
+    d2, nearest, n_star = nearest_point_normal(points, ref, normals)
+    return signed_distance_from_nearest(points, d2, nearest, n_star, lateral_margin)
+
+
+class _SignedDistanceToSet(torch.autograd.Function):
+    """Signed distance with the exact piecewise gradient: the direction
+    d(sd)/dp saved by the forward pass (the JAX package's custom_jvp). K2
+    has no backward kernel: the backward pass is one product."""
+
+    @staticmethod
+    def forward(ctx, points, ref, normals):
+        sd, dirs = signed_distance_with_dir(points, ref, normals)
+        ctx.save_for_backward(dirs)
+        return sd
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dirs,) = ctx.saved_tensors
+        return grad[..., None] * dirs, None, None
+
+
+def signed_distance_to_set(points, ref, normals):
+    """Differentiable signed distance of points to padded point sets with
+    normals; the sets are constants (scene geometry)."""
+    return _SignedDistanceToSet.apply(points, ref, normals)

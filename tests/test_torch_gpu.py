@@ -1,18 +1,21 @@
-"""K1 on the card: the hand-written CUDA kernel against its plain-torch
-version on the same CUDA tensors. Marked `gpu`; every test skips where
-there is no CUDA device. Run on the card with
+"""K1, K2 and K3 on the card: the hand-written CUDA kernels against their
+plain-torch versions on the same CUDA tensors. Marked `gpu`; every test
+skips where there is no CUDA device. Run on the card with
 
-    python -m pytest -m gpu tests/test_torch_gpu.py
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 Tolerance 1e-5 m^2: squared distances in the workspace are below ~10 m^2
 and the kernel's fused multiply-adds may move a value by a few ulp
-(~1e-6 at that scale) against the plain version's rounding.
+(~1e-6 at that scale) against the plain version's rounding. Above 10 m^2
+(PAD_COORD rows, ~3e12 m^2) K2 / K3 are held to 1e-6 relative. Their
+index may differ from plain's only where two rows are that near to equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from grasptrajopt_tpu_torch.fields.scene_points import PAD_COORD
 from grasptrajopt_tpu_torch.ops import nn
 
 pytestmark = pytest.mark.gpu
@@ -90,3 +93,109 @@ def test_min_sqdist_d2_is_exact_near_the_surface(cuda):
     want = torch.sqrt(nn.min_sqdist_d2(q.cpu().double(), ref.cpu().double()))
     assert float(d.max()) <= 1.001e-3
     np.testing.assert_allclose(d.numpy(), want.numpy(), atol=1e-7, rtol=0)
+
+
+def _nearest_inputs(dev, C, M, N, seed=0, n_pad=0, valid=None):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.rand((C, M, 3), generator=g) * 2 - 1
+    r = torch.rand((C, N, 3), generator=g) * 2 - 1
+    r[:, N - n_pad :] = PAD_COORD
+    nrm = torch.nn.functional.normalize(torch.randn((C, N, 3), generator=g), dim=-1)
+    mask = None if valid is None else torch.rand((C, N), generator=g) < valid
+    rT = nn._pack_refT(r.to(dev), None if mask is None else mask.to(dev))
+    return q.to(dev), rT, nrm.to(dev)
+
+
+def _check_nearest(q, rT, nrm, got, want):
+    """d2 to tolerance; the kernel's row as near as plain's (float64);
+    point and normal bit-equal to that row."""
+    C, _, N = rT.shape
+    M = q.shape[1]
+    d2k, idxk, d2p, idxp = got[0].double(), got[1].long(), want[0].double(), want[1].long()
+    tol = torch.where(d2p < 10, torch.full_like(d2p, TOL), 1e-6 * d2p)
+    assert bool(((d2k - d2p).abs() <= tol).all())
+    assert bool(((idxk >= 0) & (idxk < N)).all())
+
+    def row_d2(idx):
+        rows = torch.gather(rT, 2, idx[:, None, :].expand(C, 4, M)).double()
+        return ((q.double() - rows[:, :3].transpose(1, 2)) ** 2).sum(-1) + rows[:, 3]
+
+    assert bool(((row_d2(idxk) - row_d2(idxp)).abs() <= tol).all())
+    if nrm is not None:
+        pt = torch.gather(rT[:, :3], 2, idxk[:, None, :].expand(C, 3, M)).transpose(1, 2)
+        assert torch.equal(got[2], pt)
+        assert torch.equal(got[3], torch.gather(nrm, 1, idxk[..., None].expand(C, M, 3)))
+
+
+@pytest.mark.parametrize(
+    "C,M,N,n_pad,with_normals",
+    [
+        (4, 50_000, 4_096, 400, True),  # the exact tier's obstacle set, padded
+        (3, 1, 1, 0, True),  # ragged M and N
+        (2, 1_025, 4_097, 0, True),
+        (5, 1_000, 1_000, 0, False),  # K3
+        (2, 2_049, 2_048, 10, False),
+    ],
+)
+def test_nearest_kernel_matches_plain(cuda, C, M, N, n_pad, with_normals):
+    q, rT, nrm = _nearest_inputs(cuda, C, M, N, n_pad=n_pad)
+    normals = nrm if with_normals else None
+    k2, k3 = nn.nearest_launches, nn.min_sqdist_launches
+    got = nn.nearest_batched(q, rT, normals)
+    torch.cuda.synchronize()
+    assert (nn.nearest_launches - k2, nn.min_sqdist_launches - k3) == ((1, 0) if with_normals else (0, 1))
+    want = nn.nearest_batched_reference(q, rT, normals)
+    assert len(got) == len(want) == (4 if with_normals else 2)
+    _check_nearest(q, rT, normals, got, want)
+
+
+def test_nearest_all_pad_set_takes_the_first_row(cuda):
+    q, rT, nrm = _nearest_inputs(cuda, 2, 3_000, 2_100, n_pad=100)
+    rT[1, :3] = PAD_COORD  # set 1: every row padding, all exactly tied
+    got = nn.nearest_batched(q, rT, nrm)
+    want = nn.nearest_batched_reference(q, rT, nrm)
+    torch.cuda.synchronize()
+    _check_nearest(q, rT, nrm, got, want)
+    assert bool((got[1][1] == 0).all()) and bool(torch.isfinite(got[0][1]).all())
+
+
+def test_min_sqdist_mask_and_all_invalid_set(cuda):
+    q, rT, _ = _nearest_inputs(cuda, 4, 5_000, 3_000, valid=0.6)
+    rT[2, 3] = nn.PENALTY_BIG  # set 2: every point invalid
+    got = nn.nearest_batched(q, rT)
+    want = nn.nearest_batched_reference(q, rT)
+    torch.cuda.synchronize()
+    _check_nearest(q, rT, None, got, want)
+    assert bool((got[0][2] >= 1e38).all()) and bool((got[1][2] == 0).all())
+    valid = rT[:, 3] == 0
+    assert bool(torch.gather(valid[[0, 1, 3]], 1, got[1][[0, 1, 3]].long()).all())
+
+
+def test_nearest_duplicates_first_index_wins(cuda):
+    """F1: of two coincident points (2,048 rows apart, in different
+    shared-memory tiles) the kernel returns the first."""
+    g = torch.Generator().manual_seed(3)
+    base = torch.rand((2, 3_000, 3), generator=g)
+    ref = torch.cat([base, base], dim=1).to(cuda)
+    nrm = torch.cat([torch.tensor([0.0, 0.0, 1.0]).expand(2, 3_000, 3),
+                     torch.tensor([0.0, 0.0, -1.0]).expand(2, 3_000, 3)], dim=1).contiguous().to(cuda)
+    q = torch.cat([base + 1e-3, torch.rand((2, 1_000, 3), generator=g)], dim=1).to(cuda)
+    d2, pt, nm = nn.nearest_point_normal(q, ref, nrm)
+    _, idx = nn.min_sqdist(q, ref)
+    torch.cuda.synchronize()
+    assert bool((idx < 3_000).all()) and bool((nm[..., 2] == 1.0).all())
+    assert torch.equal(pt, torch.gather(ref, 1, idx.long()[..., None].expand(-1, -1, 3)))
+
+
+def test_nearest_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, rT, nrm = _nearest_inputs(cuda, 2, 100, 100)
+    counts = (nn.nearest_launches, nn.min_sqdist_launches)
+    with pytest.raises(TypeError):
+        nn.nearest_batched(q.double(), rT.double(), nrm.double())
+    with pytest.raises(ValueError):
+        nn.nearest_batched(q.cpu(), rT, nrm)
+    with pytest.raises(ValueError):
+        nn.nearest_batched(q, rT, nrm.cpu())
+    with pytest.raises(ValueError):
+        nn.nearest_batched(q[:, ::2], rT)  # not contiguous
+    assert (nn.nearest_launches, nn.min_sqdist_launches) == counts
