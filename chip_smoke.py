@@ -11,9 +11,9 @@ result line:
   1. device: a CUDA device is required (there is no CPU path); prints the
      card's name and power limit as nvidia-smi reports them;
   2. build: compiles the kernels (csrc/min_d2.cu: K1; csrc/nearest.cu: K2
-     and K3) with nvcc for sm_90a from the sources in this checkout, one
-     nvcc per source, all started together, and prints nvcc's register
-     and shared-memory report;
+     and K3; csrc/field_lookup.cu: K4) with nvcc for sm_90a from the
+     sources in this checkout, one nvcc per source, all started together,
+     and prints nvcc's register and shared-memory report;
   3. kernel vs plain: K1 against its plain-torch version on the same CUDA
      tensors, at the perception-to-plan path's widths (B = 16 clouds,
      M = 95,760 workspace grid points, N = 12,288 obstacle and 2,048 target
@@ -38,23 +38,60 @@ result line:
      7-DoF arm with 1,000 surface points on its 95,760-cell grid, IK 50
      iterations, plan T = 50 with 3 iterations, coarse 2+1, final_trust),
      once to warm up and once counted: K1 must launch exactly 3 times (two
-     field passes and the grasp pre-filter), both fields and the
+     field passes and the grasp pre-filter) and K4 3 times (the plan's
+     coarse, coarse and fine linearisations), both fields and the
      pre-filter must agree with the plain version on the clouds the card
-     produced, and the plan must be finite, within the joint limits and
-     pinned at its first two steps;
+     produced, the plan must be finite, within the joint limits and
+     pinned at its first two steps, and K4 must agree with its plain
+     version at the plan's body points as the planner passes them (the
+     x / y / z views of one (B, T, P, 3) tensor, the per-object row bases
+     of the stacked table) at the fine and the coarse stride;
   6. per-goal tiers: for every object its kept and found grasps (all 32
      where none survives), one single-goal problem each (512 in all): the
      exact tier (points mode, 12 iterations, obstacle weight 40, against
      each object's 4,096 / 1,024-point scene sets) and the rescue tier
      (field mode at the plan's flavor), once to warm up and once counted:
      K2 must launch exactly 2 x (12 + 1) = 26 times (two point sets per
-     pass) and K3 once (the tiers' clearance), the plans of both tiers
+     pass) and K3 once (the tiers' clearance), K4 never in the exact tier
+     and 3 times in the rescue tier, the plans of both tiers
      must be finite, within the joint limits and pinned at their first two
-     steps, and the exact tier's final obstacle distances must agree with
-     the plain K2's. Both tiers run over every object, because the replay
-     scorer that picks the objects to escalate is not ported;
-  7. result: the nvidia-smi line, one JSON line of kernel records, and the
-     last line {"ok": true, "device": {...}}.
+     steps, the exact tier's final obstacle distances must agree with
+     the plain K2's, and the rescue tier's final fields with the plain
+     K4's in the layout and with the per-problem row bases of its
+     launches, at (512, 50, 1000) and (512, 50, 500) body points. Both
+     tiers run over every object, because the replay scorer that picks
+     the objects to escalate is not ported;
+  7. bench solve (grasptrajopt_tpu_torch.bench, the solve the JAX
+     package's bench.py measures): 32 problems of 8 goals against one
+     shared slab field, the synthetic arm's 1,000 body points, IK warm
+     starts with the multistart rescue. First K4 against its plain version
+     on the same CUDA tensors: the bench's fine and coarse passes (1.6 M
+     and 0.8 M body points of the warm starts) both as the AoS views the
+     Jacobian pass gives (every launch of the default solve) and as the
+     SoA tensors of the two-pass value passes, the slice's stacked table
+     (16 objects, 98 MB), the TPU probe's shape (145,152 rows, 1.92 M
+     points in the cells its uniform and coherent +-64 offsets name), and
+     ragged, outside, on-face and strided (AoS) points; each output within
+     1e-5 x (1 + |plain|), zero gradient outside the grid; the median
+     device time a call of the kernel, the plain version and the two
+     library gathers of the same rows (torch.index_select and table[rows];
+     the faster is the yardstick), each call's launches queued back to
+     back (`queued_ms`). A report of the IK warm start (single seed and
+     multistart reach on the bench's goals). Then each flavour, warmed up,
+     timed (latency: best of 3 synchronized solves; sustained plans/s: 5
+     back-to-back solves, one synchronize) and counted once: K4 exactly 3
+     launches a solve in the
+     default flavour (T = 50, single pass, coarse 2+1, final_trust), 7 in
+     the two-pass flavour (1 + 3 x 2) and 3 in the long-horizon flavour
+     (T = 200, cyclic reduction), K1-K3 none; the plans finite, within the
+     limits, pinned, their final field values equal to plain K4's at the
+     AoS views of their body points (fine and, with a coarse phase, coarse
+     stride); the
+     quality gates reported, not gated; cyclic reduction against the
+     Thomas solve at (32, 198, 7, 7) to 1e-4 relative;
+  8. result: the nvidia-smi line, one JSON line of kernel records (with
+     each kernel's roofline bound and, for K4, the library call's time),
+     and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,7 +105,22 @@ import time
 FIELD_TOL = 1e-5  # m^2 for K1's d2, cost units for the shaped fields
 NEAR_TOL = 1e-5  # m^2 for K2 / K3's d2 below 10 m^2 ...
 NEAR_RTOL = 1e-6  # ... and relative above it (PAD_COORD rows: ~3e12 m^2)
-KERNEL_SOURCES = ("min_d2", "nearest")
+LOOKUP_TOL = 1e-5  # K4: |err| <= LOOKUP_TOL * (1 + |plain|), value and gradients
+CR_RTOL = 1e-4  # cyclic reduction against the Thomas solve, float32 on the card
+KERNEL_SOURCES = ("min_d2", "nearest", "field_lookup")
+# the H100 SXM's peaks (NVIDIA's data sheet, at 700 W): device memory, and the
+# FP32 rate of 67 TFLOP/s as lane instructions (a fused multiply-add, 2
+# flops, issues once)
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 3.35e13
+
+
+def bound_ms(nbytes: float, instructions: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves `nbytes` (each input read once, each output written
+    once) and issues `instructions` FP32 lane instructions."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, instructions / FP32_INSTR_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def nvidia_smi_line() -> str:
@@ -94,6 +146,45 @@ def cuda_ms(fn, reps: int) -> list:
     return times
 
 
+def queued_ms(fn, calls: int = 10) -> float:
+    """Device time (ms) of one call of `fn` when its launches run back to
+    back: the card first sleeps (~0.1 s) while the host enqueues `calls`
+    calls, so the host's launch overhead opens no gaps between them (a
+    lone call of a ~10 us kernel behind ~100 us of Python would time the
+    Python). Fails if the host took longer than the sleep to enqueue."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    slept_ms = start.elapsed_time(end)  # from the first call's start: the sleep is over by then
+    if host_ms >= 50.0:
+        raise AssertionError(f"enqueueing {calls} calls took {host_ms:.1f} ms of host time: the sleep was too short")
+    return slept_ms / calls
+
+
+def device_kernels(fn) -> list:
+    """[(name, device ms)] of the device kernels of one call of `fn`, by
+    torch.profiler: which library kernel a yardstick runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:120], round(e.self_device_time_total / 1e3, 4))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -112,8 +203,8 @@ def phase_build():
 
 def phase_kernel_vs_plain(grid_pts, dev):
     """K1 against the plain version; returns (max |d2 err|, kernel ms,
-    plain ms) where the times are the sums over the slice's three launch
-    shapes."""
+    plain ms, bound ms, bound_by) where the times are the sums over the
+    slice's three launch shapes."""
     import numpy as np
     import torch
 
@@ -143,7 +234,7 @@ def phase_kernel_vs_plain(grid_pts, dev):
     invalid[1, 3] = nn.PENALTY_BIG  # cloud 1: every point invalid
     cases.append(("all-invalid cloud B=3 M=777 N=2100", grid[:777], invalid, False))
 
-    max_err, k_ms, p_ms = 0.0, 0.0, 0.0
+    max_err, k_ms, p_ms, b_ms = 0.0, 0.0, 0.0, 0.0
     for name, q, rT, timed in cases:
         got = nn.min_d2_batched(q, rT)
         if rT is invalid and not bool((got[1] >= 1e38).all()):
@@ -165,11 +256,16 @@ def phase_kernel_vs_plain(grid_pts, dev):
                 plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(q, rT), 1)
                 kernel_t += cuda_ms(lambda: nn.min_d2_batched(q, rT), 1)
             km, pm = statistics.median(kernel_t), statistics.median(plain_t)
-            k_ms, p_ms = k_ms + km, p_ms + pm
-            line += f"; median kernel {km:.4f} ms, plain {pm:.4f} ms"
+            B, _, N = rT.shape
+            M = q.shape[-2]
+            # 8 FP32 instructions a pair: 3 subtracts, a multiply, 2 fused
+            # multiply-adds, the penalty add and the min
+            bm, by = bound_ms(4 * (q.numel() + rT.numel() + B * M), 8 * B * M * N)
+            k_ms, p_ms, b_ms = k_ms + km, p_ms + pm, b_ms + bm
+            line += f"; median kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms"
         print(line)
     print(f"[kernel] K1 max |d2 err| {max_err:.3e} m^2 over {len(cases)} cases (tolerance {FIELD_TOL:g})")
-    return max_err, k_ms, p_ms
+    return max_err, k_ms, p_ms, b_ms, by
 
 
 def d2_tolerance(want):
@@ -219,9 +315,9 @@ def check_nearest(name, q, rT, normals, got, want):
 
 def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
     """K2 and K3 against the plain version; returns {"K2": (max |d2 err|,
-    kernel ms, plain ms), "K3": (...)}, the times summed over each mode's
-    exact-tier launch shapes. m_tier: one object's queries in the exact
-    tier (goal slots x T x body points)."""
+    kernel ms, plain ms, bound ms, bound_by), "K3": (...)}, the times
+    summed over each mode's exact-tier launch shapes. m_tier: one
+    object's queries in the exact tier (goal slots x T x body points)."""
     import numpy as np
     import torch
 
@@ -272,7 +368,7 @@ def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
     dup_q = f32(np.concatenate([base + 1e-3, rng.uniform(lo, hi, size=(2, 1000, 3))], axis=1))
     cases.append(("K2 exact duplicates C=2 M=4000 N=6000", "K2", dup_q, dup, dup_n, False))
 
-    out = {"K2": [0.0, 0.0, 0.0], "K3": [0.0, 0.0, 0.0]}
+    out = {"K2": [0.0, 0.0, 0.0, 0.0, None], "K3": [0.0, 0.0, 0.0, 0.0, None]}
     for name, mode, q, rT, normals, timed in cases:
         got = nn.nearest_batched(q, rT, normals)
         want = nn.nearest_batched_reference(q, rT, normals)
@@ -293,9 +389,15 @@ def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
                 plain_t += cuda_ms(lambda: nn.nearest_batched_reference(q, rT, normals), 1)
                 kernel_t += cuda_ms(lambda: nn.nearest_batched(q, rT, normals), 1)
             km, pm = statistics.median(kernel_t), statistics.median(plain_t)
-            rec[1], rec[2] = rec[1] + km, rec[2] + pm
             pairs = q.shape[-2] * rT.shape[0] * rT.shape[2]
-            line += (f"; median kernel {km:.4f} ms, plain {pm:.4f} ms; "
+            # about 10 FP32 instructions a pair (K1's 8 and two selects
+            # that carry the index); outputs d2 and index, with normals
+            # also the point and its normal
+            n_out = q.shape[-2] * rT.shape[0] * (2 if normals is None else 8)
+            n_in = q.numel() + rT.numel() + (0 if normals is None else normals.numel())
+            bm, rec[4] = bound_ms(4 * (n_in + n_out), 10 * pairs)
+            rec[1], rec[2], rec[3] = rec[1] + km, rec[2] + pm, rec[3] + bm
+            line += (f"; median kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms; "
                      f"{pairs:.3e} pairs, {pairs / km * 1e3:.3e} pairs/s")
         print(line)
         del got, want
@@ -327,7 +429,7 @@ def phase_slice(dev, cfg=None):
         PerceptionToPlan, SliceConfig, collect_observations, reach_fractions,
     )
     from grasptrajopt_tpu_torch.fields.depth_point_cloud import camera_outside, cost_fields_from_d2
-    from grasptrajopt_tpu_torch.ops import nn
+    from grasptrajopt_tpu_torch.ops import interp, nn
     from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
 
     cfg = cfg or SliceConfig()
@@ -341,11 +443,11 @@ def phase_slice(dev, cfg=None):
           f"grid {robot.grid.shape} = {robot.grid.size} cells")
     path.run(obs)  # warm-up: library handles, allocator
 
-    nn.min_d2_launches = 0
+    nn.min_d2_launches = interp.field_lookup_launches = 0
     out = path.run(obs)
-    launches = nn.min_d2_launches
-    if launches != 3:
-        raise AssertionError(f"K1 launched {launches} times in the slice, expected 3")
+    launches, k4 = nn.min_d2_launches, interp.field_lookup_launches
+    if (launches, k4) != (3, 3):
+        raise AssertionError(f"the slice launched K1 {launches} and K4 {k4} times, expected 3 and 3")
 
     # both fields and the pre-filter against the plain K1 on the card's clouds
     x, two = out["inputs"], out["fields"]
@@ -377,11 +479,14 @@ def phase_slice(dev, cfg=None):
         raise AssertionError(f"non-finite plan cost: {cost.tolist()}")
     if not (torch.isfinite(two.f_all).all() and torch.isfinite(two.f_obs).all()):
         raise AssertionError("non-finite cost field")
+    plan_err = check_plan_fields("slice plan final fields", path.planner, out["tables"], Q_full,
+                                 x["base_position"].expand(B, 3)[:, None, :], out["field_base"])
 
     reach = reach_fractions(robot, path.link_ee, Q_full, x["tf_goal"], out["goal_mask"])
     ms = {k: 1e3 * v / B for k, v in out["seconds"].items()}
-    print(f"[slice] K1 launches {launches}; Q {tuple(Q.shape)} finite, within limits; "
-          f"cost median {float(cost.median()):.4f}, max {float(cost.max()):.4f}")
+    print(f"[slice] K1 launches {launches}, K4 {k4}; Q {tuple(Q.shape)} finite, within limits; "
+          f"cost median {float(cost.median()):.4f}, max {float(cost.max()):.4f}; final fields on the "
+          f"stacked table vs plain K4 (fine and coarse passes, AoS views): max |err| {plan_err:.3e}")
     print(f"[slice] kept grasps {int(out['keep'].sum())}/{out['keep'].numel()}, "
           f"IK found {int(out['found'].sum())}/{out['found'].numel()}, "
           f"goal slots {int(out['goal_mask'].sum())}")
@@ -409,6 +514,9 @@ def phase_pergoal(path, obs, out, dev):
     want_k2 = 2 * (cfg.exact_iterations + 1)
     if (k1, k2, k3) != (0, want_k2, 1):
         raise AssertionError(f"per-goal tiers launched K1 {k1}, K2 {k2}, K3 {k3} times; expected 0, {want_k2}, 1")
+    k4 = pg["field_lookup_launches"]
+    if (k4["exact"], k4["rescue"]) != (0, 3):
+        raise AssertionError(f"K4 launched {k4} times in the tiers, expected 0 in the exact and 3 in the rescue tier")
     C, G = pg["tf_goal"].shape[:2]
     n = pg["n_goals"]
     real = torch.arange(G, device=dev)[None, :] < n[:, None]
@@ -429,9 +537,18 @@ def phase_pergoal(path, obs, out, dev):
         nn.nearest_batched(pts, rT, sets["scene_normals"]),
         nn.nearest_batched_reference(pts, rT, sets["scene_normals"]),
     )
+    del pts, rT
+    # the rescue tier's final fields: K4 against plain at the shapes, the
+    # layout and the per-problem row bases of its three launches
+    base = out["inputs"]["base_position"].expand(C, 3).repeat_interleave(G, dim=0)[:, None, :]
+    rescue_err = check_plan_fields(
+        "rescue tier final fields", path.planner, out["tables"],
+        pg["Q_rescue"].reshape((C * G,) + pg["Q_rescue"].shape[2:]), base, out["field_base"].repeat_interleave(G),
+    )
     print(f"[pergoal] {C} objects x {G} goal slots = {C * G} problems, real goals {int(n.sum())}; "
-          f"K1 {k1}, K2 {k2}, K3 {k3} launches; exact tier final obstacle d2 vs plain K2: "
-          f"max |err| {err:.3e} m^2")
+          f"K1 {k1}, K2 {k2}, K3 {k3} launches, K4 {k4['exact']} (exact) and {k4['rescue']} (rescue); "
+          f"exact tier final obstacle d2 vs plain K2: max |err| {err:.3e} m^2; rescue tier final fields "
+          f"on the stacked table vs plain K4 (fine and coarse passes, AoS views): max |err| {rescue_err:.3e}")
     ms = {k: 1e3 * v / C for k, v in pg["seconds"].items()}
     print("[pergoal] ms per object: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f" (host clock around synchronized phases, batch {C})")
@@ -447,6 +564,317 @@ def phase_pergoal(path, obs, out, dev):
               + " ".join(f"{v:.4f}" for v in sd_min.tolist()))
     print(f"[pergoal] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     return k2, k3
+
+
+def check_lookup(name, got, want):
+    """K4's (value, gx, gy, gz) against the plain version's: each within
+    LOOKUP_TOL * (1 + |plain|); returns the max |err|."""
+    import torch
+
+    err = 0.0
+    for label, a, b in zip(("value", "gx", "gy", "gz"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {label} {tuple(a.shape)} {a.dtype} != {tuple(b.shape)} {b.dtype}")
+        d = (a.double() - b.double()).abs()
+        if not bool(torch.isfinite(a).all()) or bool((d > LOOKUP_TOL * (1 + b.double().abs())).any()):
+            raise AssertionError(f"{name}: {label} differs from plain by up to {float(d.max()):.3e}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def planner_points(robot, Q_full, base_position=None, stride: int = 1):
+    """The body points of plans Q_full (..., T, ndof) laid out as the
+    planner's Jacobian pass hands them to K4 (`field_term_value_jac`): one
+    contiguous (..., T, P, 3) tensor, passed as its x / y / z views, 3
+    elements apart."""
+    import torch
+
+    x, y, z = robot.surface_points_soa(robot.fk_components(Q_full), base_position, stride=stride)
+    pts = torch.stack([x, y, z], dim=-1)
+    return pts[..., 0], pts[..., 1], pts[..., 2]
+
+
+def check_plan_fields(name, planner, table, Q_full, base_position=None, field_base=None):
+    """K4 against plain at the body points of plans Q_full (B, T, ndof), in
+    the layout and with the row bases the planner gives it (the phase slab,
+    plus each problem's field_base on a stacked table), at the fine stride
+    and, where the planner has a coarse phase, the coarse one; returns the
+    max |err|."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import interp
+
+    g = planner.robot.grid
+    T = Q_full.shape[-2]
+    row = (torch.arange(T, device=Q_full.device) >= T + planner.standoff_offset).long()[:, None] * g.size
+    if field_base is not None:
+        row = row + field_base[:, None, None]
+    err = 0.0
+    for stride in sorted({1, planner.coarse_stride if planner.coarse_iterations else 1}):
+        x, y, z = planner_points(planner.robot, Q_full, base_position, stride)
+        args = (table, x, y, z, g.origin, g.shape, g.resolution, row)
+        got = interp.field_lookup_packed_soa_grad(*args)
+        want = interp.field_lookup_packed_soa_grad_reference(*args)
+        err = max(err, check_lookup(f"{name} at {tuple(x.shape)} (AoS views)", got, want))
+        del got, want
+    return err
+
+
+def lookup_rows(x, y, z, origin, shape, resolution, row_offset):
+    """The corner rows (n,) long that K4 reads: the library yardsticks
+    gather these with torch.index_select and with advanced indexing."""
+    from grasptrajopt_tpu_torch.ops import interp
+
+    offs = interp._cell_and_frac(x, y, z, origin, shape, resolution)[0]
+    return (offs + row_offset).reshape(-1)
+
+
+def lookup_bound(rows, n_points, n_bases):
+    """K4's bound for one launch: 12 B of coordinates in and 16 B of value
+    and gradient out a point, a 4-byte row base per (problem, step), the
+    32-byte corner rows this launch touches once each; about 50 FP32
+    instructions a point."""
+    import torch
+
+    touched = int(torch.unique(rows).numel())
+    return bound_ms(28 * n_points + 4 * n_bases + 32 * touched, 50 * n_points)
+
+
+def phase_field_lookup_vs_plain(dev, bench):
+    """K4 against its plain version on the same CUDA tensors: the bench's
+    fine and coarse passes (the shared table, body points of the warm
+    starts), the slice's stacked table, the probe's shapes, and ragged,
+    outside, on-face and strided input. Returns the K4 record of the main
+    path's three launches a solve (two coarse, one fine): max |err|,
+    kernel / plain / library / bound ms, bound_by."""
+    import numpy as np
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import interp
+
+    robot, g = bench.robot, bench.robot.grid
+    S = g.size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    T = bench.cfg.T
+    phase = (torch.arange(T, device=dev) >= T - 10).long()[:, None] * S  # (T, 1)
+
+    def body_points(stride):
+        """The warm starts' body points in the planner's two layouts: the
+        Jacobian pass's x / y / z views of one (B, T, P, 3) tensor (AoS:
+        every launch of the default and long-horizon solves) and the value
+        pass's three tensors (SoA: the two-pass flavour's first and
+        candidate passes)."""
+        Q_full = bench.full_q(torch.cat([bench.qc_opt[:, None].expand(-1, 2, -1), bench.X0], dim=1))
+        aos = planner_points(robot, Q_full, None, stride)
+        return aos, tuple(v.contiguous() for v in aos)
+
+    def uniform_points(lead, lo, hi):
+        lo = torch.as_tensor(lo, dtype=torch.float32, device=dev)
+        hi = torch.as_tensor(hi, dtype=torch.float32, device=dev)
+        p = lo + torch.rand(lead + (3,), generator=gen, device=dev) * (hi - lo)
+        return p[..., 0].contiguous(), p[..., 1].contiguous(), p[..., 2].contiguous()
+
+    grid_lo = np.asarray(g.origin)
+    grid_hi = grid_lo + (np.asarray(g.shape) - 1) * g.resolution
+    # the slice's stacked table: 16 objects' field pairs, 98 MB
+    stacked = g.pack(torch.rand((32, S), generator=gen, device=dev) * 0.1).reshape(-1, 8)
+    stacked_row = phase + (torch.arange(16, device=dev) * 2 * S)[:, None, None]
+
+    # the probe's table: two fields on a 72,576-cell grid, 145,152 rows,
+    # and 1.92 M points placed in the cells its offsets name
+    p_shape, p_origin, p_res = (48, 42, 36), (0.0, 0.0, 0.0), 0.05
+    p_cells = 48 * 42 * 36
+    probe_table = interp.pack_corners(torch.randn((2, p_cells), generator=gen, device=dev), p_shape).reshape(-1, 8)
+    Qp = 1_920_000
+    Sp = 2 * p_cells
+
+    def probe_points(offs):
+        f, c = offs // p_cells, offs % p_cells
+        ijk = torch.stack([c // (42 * 36), (c // 36) % 42, c % 36], dim=-1).to(torch.float32)
+        p = (ijk + torch.rand((offs.shape[0], 3), generator=gen, device=dev)) * p_res
+        return (p[:, 0].contiguous(), p[:, 1].contiguous(), p[:, 2].contiguous()), f * p_cells
+
+    uniform_offs = torch.randint(0, Sp, (Qp,), generator=gen, device=dev)
+    jitter = torch.randint(-64, 64, (Qp,), generator=gen, device=dev)
+    coherent_offs = torch.clamp(torch.arange(Qp, device=dev) * Sp // Qp + jitter, 0, Sp - 1)
+
+    ragged_aos = torch.stack(uniform_points((3, 7, 11), grid_lo - 0.3, grid_hi + 0.3), dim=-1)
+    face_idx = torch.randint(0, min(g.shape), (5, T, 40, 3), generator=gen, device=dev)
+    face = torch.as_tensor(grid_lo, device=dev, dtype=torch.float32) + face_idx * g.resolution
+    (fine, fine_soa), (coarse, coarse_soa) = body_points(1), body_points(2)
+    cases = [  # (name, table, (x, y, z), origin, shape, res, row_offset, timed as)
+        (f"bench fine pass {tuple(fine[0].shape)}, shared table, AoS views (stride 3)", bench.table, fine,
+         g.origin, g.shape, g.resolution, phase, "fine"),
+        (f"bench coarse pass {tuple(coarse[0].shape)}, shared table, AoS views (stride 3)", bench.table,
+         coarse, g.origin, g.shape, g.resolution, phase, "coarse"),
+        (f"bench fine pass {tuple(fine[0].shape)}, shared table, SoA (two-pass value passes)", bench.table,
+         fine_soa, g.origin, g.shape, g.resolution, phase, "fine SoA"),
+        (f"bench coarse pass {tuple(coarse[0].shape)}, shared table, SoA", bench.table, coarse_soa,
+         g.origin, g.shape, g.resolution, phase, "coarse SoA"),
+        (f"slice stacked table, 16 objects, {(16, T, robot.num_surface_points)}", stacked,
+         uniform_points((16, T, robot.num_surface_points), grid_lo, grid_hi),
+         g.origin, g.shape, g.resolution, stacked_row, "stacked"),
+    ]
+    for name, offs in (("uniform", uniform_offs), ("coherent +-64", coherent_offs)):
+        pts, row = probe_points(offs)
+        cases.append((f"probe shape S=145152 Q=1920000, {name} offsets", probe_table, pts,
+                      p_origin, p_shape, p_res, row, f"probe {name}"))
+    cases += [
+        ("ragged 3 x 7 x 11, AoS views (stride 3), 0.3 m beyond the grid", bench.table,
+         (ragged_aos[..., 0], ragged_aos[..., 1], ragged_aos[..., 2]), g.origin, g.shape, g.resolution,
+         phase[:7], None),
+        (f"points on cell faces {tuple(face.shape[:-1])}", bench.table, (face[..., 0], face[..., 1], face[..., 2]),
+         g.origin, g.shape, g.resolution, phase, None),
+    ]
+
+    max_err, rec = 0.0, {}
+    for name, table, (x, y, z), origin, shape, res, row, timed in cases:
+        got = interp.field_lookup_packed_soa_grad(table, x, y, z, origin, shape, res, row_offset=row)
+        want = interp.field_lookup_packed_soa_grad_reference(table, x, y, z, origin, shape, res, row_offset=row)
+        torch.cuda.synchronize()
+        err = check_lookup(f"K4 {name}", got, want)
+        max_err = max(max_err, err)
+        line = f"[lookup] {name}: max |err| {err:.3e}"
+        if name.startswith("ragged"):
+            ux = (x.double() - origin[0]) / res
+            outside = (ux < 0) | (ux > shape[0] - 1)
+            if not (bool(outside.any()) and bool((got[1][outside] == 0).all())):
+                raise AssertionError("K4: the x gradient must be zero outside the grid along x")
+            line += f"; {int(outside.sum())} points outside along x, zero x gradient there"
+        if timed:
+            rows = lookup_rows(x, y, z, origin, shape, res, row)
+            n_bases = interp._row_base(row, tuple(x.shape), dev)[0].numel()
+            kernel_t, plain_t, sel_t, idx_t = [], [], [], []
+            for _ in range(5):  # in turns: plain, kernel, the two library gathers
+                plain_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad_reference(
+                    table, x, y, z, origin, shape, res, row_offset=row)))
+                kernel_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad(
+                    table, x, y, z, origin, shape, res, row_offset=row)))
+                sel_t.append(queued_ms(lambda: torch.index_select(table, 0, rows)))
+                idx_t.append(queued_ms(lambda: table[rows]))
+            km, pm, sm, im = (statistics.median(t) for t in (kernel_t, plain_t, sel_t, idx_t))
+            if timed == "fine":
+                print(f"[lookup] device kernels of one library gather: index_select "
+                      f"{device_kernels(lambda: torch.index_select(table, 0, rows))}, "
+                      f"table[rows] {device_kernels(lambda: table[rows])}")
+            lone = statistics.median(cuda_ms(lambda: interp.field_lookup_packed_soa_grad(
+                table, x, y, z, origin, shape, res, row_offset=row), 5))
+            bm, by = lookup_bound(rows, x.numel(), n_bases)
+            rec[timed] = (km, pm, min(sm, im), bm, by)
+            line += (f"; median device time a call, queued: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+                     f"index_select {sm:.4f} ms, table[rows] {im:.4f} ms; bound {bm:.4f} ms ({by}); "
+                     f"{x.numel() / km * 1e3:.3e} points/s; a lone call {lone:.4f} ms (CUDA events, with the "
+                     "host's launch gaps)")
+        print(line)
+        del got, want
+
+    def solve_record(f, c):  # a default solve's three launches: 2 coarse + 1 fine
+        return tuple(a + 2 * b for a, b in zip(f[:4], c[:4])) + (f[4],)
+
+    ms, plain_ms, library_ms, bound, bound_by = solve_record(rec["fine"], rec["coarse"])
+    soa = solve_record(rec["fine SoA"], rec["coarse SoA"])
+    out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound, "bound_by": bound_by}
+    print(f"[lookup] K4 max |err| {max_err:.3e} over {len(cases)} cases (tolerance {LOOKUP_TOL:g} x (1 + |plain|)); "
+          f"a default solve's three launches (2 coarse + fine, AoS views as the planner passes them): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (the faster of index_select and table[rows]) "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms; the same passes on SoA tensors: kernel {soa[0]:.4f} ms, "
+          f"plain {soa[1]:.4f} ms, library {soa[2]:.4f} ms")
+    return out
+
+
+def phase_cr_vs_thomas(dev, B=32, T=198, n=7):
+    """Cyclic reduction against the Thomas solve on the card at the long
+    horizon's KKT shape; returns the max relative difference."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops.block_tridiag import block_tridiag_solve, block_tridiag_solve_cr
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    A = torch.randn((B, T, n, n), generator=gen, device=dev)
+    D = A @ A.transpose(-1, -2) + 2.0 * n * torch.eye(n, device=dev)
+    L = 0.3 * torch.randn((B, T - 1, n, n), generator=gen, device=dev)
+    b = torch.randn((B, T, n), generator=gen, device=dev)
+    x_th = block_tridiag_solve(D, L, b)
+    x_cr = block_tridiag_solve_cr(D, L, b)
+    rel = float((x_cr - x_th).abs().max() / x_th.abs().max())
+    if not rel <= CR_RTOL:
+        raise AssertionError(f"cyclic reduction differs from the Thomas solve by {rel:.3e} relative")
+    t_th = statistics.median(cuda_ms(lambda: block_tridiag_solve(D, L, b), 3))
+    t_cr = statistics.median(cuda_ms(lambda: block_tridiag_solve_cr(D, L, b), 3))
+    print(f"[bench] KKT ({B}, {T}, {n}, {n}): cyclic reduction vs Thomas max rel diff {rel:.3e} "
+          f"(tolerance {CR_RTOL:g}); median {t_cr:.3f} ms vs {t_th:.3f} ms")
+    return rel
+
+
+def phase_warm_start_report(bench):
+    """How the bench's IK warm start does on its goals: the single-seed IK
+    screen's share within 1 cm and within 5 degrees, the problems that
+    bench.py's rule rescues (every goal beyond 1 cm), and the multistart
+    IK's shares on the same goals."""
+    B, cap = bench.tf_goal.shape[:2]
+    goals = bench.tf_goal.reshape(B * cap, 4, 4)
+    _, pos, rot = bench.ik.solve_ik_batch(bench.qc, goals)
+    _, pos_m, rot_m = bench.ik.solve_ik_batch(bench.qc, goals, multistart=True)
+    hard = int((pos.reshape(B, cap) > 0.01).all(dim=1).sum())
+    print(f"[bench] IK warm start on {B * cap} goals: single seed {float((pos < 0.01).float().mean()):.4f} "
+          f"within 1 cm, {float((rot < 5.0).float().mean()):.4f} within 5 degrees, median rotation error "
+          f"{float(rot.median()):.2f} degrees; problems rescued {hard} of {B}; multistart "
+          f"{float((pos_m < 0.01).float().mean()):.4f} within 1 cm, {float((rot_m < 5.0).float().mean()):.4f} "
+          "within 5 degrees")
+
+
+def phase_bench(dev):
+    """The port's bench solve (grasptrajopt_tpu_torch.bench) at full width
+    in its three flavours, and K4 against plain. Returns (the K4 record,
+    K4 launches of one default solve)."""
+    import torch
+
+    from grasptrajopt_tpu_torch import bench as pb
+    from grasptrajopt_tpu_torch.ops import interp, nn
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
+    k4 = None
+    default_launches = None
+    for flavour, want in (("default", 3), ("two_pass", 7), ("long_horizon", 3)):
+        cfg = pb.FLAVOURS[flavour]
+        t0 = time.perf_counter()
+        bench = pb.SolveBench(robot, cfg)
+        torch.cuda.synchronize(dev)
+        print(f"[bench] {flavour}: B={cfg.batch} goals {cfg.goal_capacity} T={cfg.T} iterations {cfg.iterations} "
+              f"single_pass {cfg.single_pass} coarse {cfg.coarse_iterations} final_trust {cfg.final_trust} "
+              f"cyclic_reduction {cfg.cyclic_reduction}; {robot.num_surface_points} body points, "
+              f"{robot.grid.size}-cell grid; set-up (IK warm start) {time.perf_counter() - t0:.2f} s")
+        if flavour == "default":
+            k4 = phase_field_lookup_vs_plain(dev, bench)
+            phase_warm_start_report(bench)
+        torch.cuda.reset_peak_memory_stats(dev)
+        timed = pb.time_solves(bench, reps=3, pipe_reps=5)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+        Q, cost, _ = bench.step()
+        torch.cuda.synchronize(dev)
+        counts = (nn.min_d2_launches, nn.nearest_launches, nn.min_sqdist_launches, interp.field_lookup_launches)
+        if counts != (0, 0, 0, want):
+            raise AssertionError(f"bench {flavour}: K1-K4 launched {counts} times a solve, expected (0, 0, 0, {want})")
+        if flavour == "default":
+            default_launches = counts[3]
+        if tuple(Q.shape) != (cfg.batch, cfg.T, robot.num_opt_joints) or not bool(torch.isfinite(cost).all()):
+            raise AssertionError(f"bench {flavour}: Q {tuple(Q.shape)}, cost {cost.tolist()}")
+        check_plans(f"bench {flavour}", bench.full_q(Q), bench.qc, robot)
+        err = check_plan_fields(f"bench {flavour} final fields", bench.planner, bench.table, bench.full_q(Q))
+        gates = bench.gates(Q)
+        print(f"[bench] {flavour}: K4 launches a solve {counts[3]}; Q finite, within limits, pinned; "
+              f"final fields vs plain max |err| {err:.3e}; cost median {float(cost.median()):.4f}")
+        print(f"[bench] {flavour}: latency {timed['latency_s'] * 1e3:.3f} ms (best of "
+              f"{[round(t * 1e3, 3) for t in timed['latency_runs_s']]} ms), sustained "
+              f"{timed['plans_per_s']:.3f} plans/s over 5 back-to-back solves; peak device memory {peak:.1f} MiB")
+        print(f"[bench] {flavour}: gates {json.dumps(gates)} (reported, not gated)")
+        if flavour == "long_horizon":
+            phase_cr_vs_thomas(dev, cfg.batch, cfg.T - 2, robot.num_opt_joints)
+        del bench, timed, Q
+    return k4, default_launches
 
 
 def main() -> int:
@@ -470,45 +898,35 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     phase_build()
-    grid_pts = make_synthetic_gto_robot(points_per_link=1).grid.grid_points(np.float32)
-    max_err, k_ms, p_ms = phase_kernel_vs_plain(grid_pts, dev)
+    grid_pts = make_synthetic_gto_robot(device=dev, points_per_link=1).grid.grid_points(np.float32)
+    max_err, k_ms, p_ms, b_ms, b_by = phase_kernel_vs_plain(grid_pts, dev)
     near = phase_nearest_vs_plain(grid_pts, dev)
     launches, path, obs, out = phase_slice(dev)
     k2_launches, k3_launches = phase_pergoal(path, obs, out, dev)
+    del path, obs, out
+    k4, k4_launches = phase_bench(dev)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):
+        return {
+            "name": name, "route": "cuda", "source": f"grasptrajopt_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+        }
+
+    # K1-K3 have no library call: torch.cdist in its exact mode would
+    # materialize every (query, point) distance
     print(smi)
     print(json.dumps({"kernels": [
-        {
-            "name": "K1 min_d2 (exact-fp32 batched min squared distance)",
-            "route": "cuda",
-            "source": "grasptrajopt_tpu_torch/csrc/min_d2.cu",
-            "replaces": "grasptrajopt_tpu/ops/nn.py:87",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-        },
-        {
-            "name": "K2 nearest (nearest point, index and normal)",
-            "route": "cuda",
-            "source": "grasptrajopt_tpu_torch/csrc/nearest.cu",
-            "replaces": "grasptrajopt_tpu/ops/nn.py:296",
-            "launches": k2_launches,
-            "max_abs_err": near["K2"][0],
-            "ms": near["K2"][1],
-            "plain_ms": near["K2"][2],
-        },
-        {
-            "name": "K3 min_sqdist (nearest.cu in its index-only mode: d2 and argmin under a mask)",
-            "route": "cuda",
-            "source": "grasptrajopt_tpu_torch/csrc/nearest.cu",
-            "replaces": "grasptrajopt_tpu/ops/nn.py:420",
-            "launches": k3_launches,
-            "max_abs_err": near["K3"][0],
-            "ms": near["K3"][1],
-            "plain_ms": near["K3"][2],
-        },
+        record("K1 min_d2 (exact-fp32 batched min squared distance)", "min_d2.cu",
+               "grasptrajopt_tpu/ops/nn.py:87", launches, max_err, k_ms, p_ms, b_ms, b_by, None),
+        record("K2 nearest (nearest point, index and normal)", "nearest.cu",
+               "grasptrajopt_tpu/ops/nn.py:296", k2_launches, *near["K2"], None),
+        record("K3 min_sqdist (nearest.cu in its index-only mode: d2 and argmin under a mask)", "nearest.cu",
+               "grasptrajopt_tpu/ops/nn.py:420", k3_launches, *near["K3"], None),
+        record("K4 field_lookup (packed-row trilinear lookup with its closed-form gradient)", "field_lookup.cu",
+               "tools/probe_vmem_gather.py:52", k4_launches, k4["max_abs_err"], k4["ms"], k4["plain_ms"],
+               k4["bound_ms"], k4["bound_by"], k4["library_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

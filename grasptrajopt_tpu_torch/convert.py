@@ -19,7 +19,7 @@ from grasptrajopt_tpu_torch.models.kinematics import KinematicModel
 from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 
 
-def robot_from_numpy(state: Mapping, device="cpu", dtype=torch.float32) -> GTORobotModel:
+def robot_from_numpy(state: Mapping, device="cuda", dtype=torch.float32) -> GTORobotModel:
     """Build the port's robot model from a JAX `GTORobotModel`'s state.
 
     `state` keys:
@@ -52,7 +52,7 @@ def robot_from_numpy(state: Mapping, device="cpu", dtype=torch.float32) -> GTORo
     return robot
 
 
-def scene_sets_from_numpy(obstacle, target, device="cpu", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+def scene_sets_from_numpy(obstacle, target, device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Points mode's scene sets as the planner's shared params: `obstacle`
     and `target` are one `ScenePointSet` each (fields.scene_points, or the
     JAX package's, which holds the same arrays) or same-length sequences of
@@ -71,7 +71,7 @@ def scene_sets_from_numpy(obstacle, target, device="cpu", dtype=torch.float32) -
 _INDEX_KEYS = ("field_base", "goal_seed")
 
 
-def params_from_numpy(params: Mapping, device="cpu", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+def params_from_numpy(params: Mapping, device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """A JAX solver params dict (tf_goal, q_param, goal_mask,
     base_position, field_base, packed_fields, optional goal_seed) as
     tensors: floats in `dtype`, masks as bool, row offsets and goal

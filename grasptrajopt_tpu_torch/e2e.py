@@ -57,7 +57,7 @@ from grasptrajopt_tpu_torch.fields.depth_point_cloud import (
     signed_distance_to_cloud,
 )
 from grasptrajopt_tpu_torch.fields.scene_points import scene_point_sets_from_depth
-from grasptrajopt_tpu_torch.ops import nn
+from grasptrajopt_tpu_torch.ops import interp, nn
 from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
@@ -214,14 +214,14 @@ class PerceptionToPlan:
         self.planner = GTOPlanner(
             robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER,
             standoff_distance=cfg.standoff_distance, iterations=cfg.plan_iterations,
-            T=cfg.T, coarse_iterations=cfg.coarse_iterations, final_trust=cfg.final_trust,
-            sdf_epsilon=cfg.field_epsilon,
+            T=cfg.T, single_pass=True, coarse_iterations=cfg.coarse_iterations,
+            final_trust=cfg.final_trust, sdf_epsilon=cfg.field_epsilon,
         )
         self.solvers = self.planner.setup_optimization(
             goal_size=cfg.goal_capacity, use_standoff=True, axis_standoff=cfg.axis_standoff
         )
         self.exact_planner = GTOPlanner(
-            robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, obstacle_mode="points",
+            robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, obstacle_mode="points", single_pass=True,
             standoff_distance=cfg.standoff_distance, iterations=cfg.exact_iterations,
             obstacle_weight=cfg.exact_obstacle_weight, sdf_epsilon=cfg.exact_epsilon, T=cfg.T,
         )
@@ -380,17 +380,20 @@ class PerceptionToPlan:
         base = x["base_position"]
         _sync(dev)
         t1 = time.perf_counter()
+        k4 = interp.field_lookup_launches
         Q_exact, cost_exact, _ = self.exact_planner.plan_pergoal_batch(
             self.qc, tf_goal, n_goals, q_sols, base, True, cfg.axis_standoff, scene=sets,
         )
         _sync(dev)
         t2 = time.perf_counter()
+        k4_exact = interp.field_lookup_launches - k4
         Q_rescue, cost_rescue, _ = self.planner.plan_pergoal_batch(
             self.qc, tf_goal, n_goals, q_sols, base, True, cfg.axis_standoff,
             fields=(out["tables"], out["field_base"]),
         )
         _sync(dev)
         t3 = time.perf_counter()
+        k4_rescue = interp.field_lookup_launches - k4 - k4_exact
         Q_both = torch.stack([Q_exact, Q_rescue], dim=1)  # (C, 2, G, T, ndof)
         sd = self.clearance(Q_both.reshape((B, 2 * G) + Q_both.shape[3:]), sets, base)
         _sync(dev)
@@ -402,4 +405,5 @@ class PerceptionToPlan:
             "Q_rescue": Q_rescue, "cost_rescue": cost_rescue,
             "sd_exact": sd[:, 0], "sd_rescue": sd[:, 1],
             "seconds": {"scene_sets": t1 - t0, "exact": t2 - t1, "rescue": t3 - t2, "clearance": t4 - t3},
+            "field_lookup_launches": {"exact": k4_exact, "rescue": k4_rescue},
         }

@@ -2,7 +2,7 @@
 
 Port of grasptrajopt_tpu/fields/voxel_grid.py (`VoxelGrid` only). Grid
 construction is host numpy and identical to the JAX package; `pack` and
-`lookup_nearest` act on torch tensors.
+the lookups act on torch tensors.
 """
 
 from __future__ import annotations
@@ -13,7 +13,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from grasptrajopt_tpu_torch.ops.interp import field_lookup_nearest, pack_corners
+from grasptrajopt_tpu_torch.ops.interp import (
+    field_lookup_nearest,
+    field_lookup_trilinear,
+    pack_corners,
+)
 
 DEFAULT_MARGIN = 0.4
 DEFAULT_RESOLUTION = 0.05
@@ -64,6 +68,20 @@ class VoxelGrid:
             field_flat, points, self.origin_tensor(points.dtype, points.device),
             self.shape, self.resolution,
         )
+
+    def lookup_trilinear(self, field_flat, points):
+        return field_lookup_trilinear(
+            field_flat, points, self.origin_tensor(points.dtype, points.device),
+            self.shape, self.resolution,
+        )
+
+    def lookup(self, field_flat, points, interp: str = "trilinear"):
+        """Field values at (..., 3) points: trilinear or floor-indexed."""
+        if interp == "trilinear":
+            return self.lookup_trilinear(field_flat, points)
+        if interp == "nearest":
+            return self.lookup_nearest(field_flat, points)
+        raise ValueError(f"unknown interp mode '{interp}'")
 
     def pack(self, field_flat):
         """(..., size) fields -> (..., size, 8) trilinear corner rows."""

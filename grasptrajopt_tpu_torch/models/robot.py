@@ -48,7 +48,7 @@ class RobotModel:
         lower: np.ndarray,
         upper: np.ndarray,
         velocity: np.ndarray,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         self.kinematics = kinematics

@@ -1,9 +1,12 @@
 """Block-tridiagonal projected Levenberg-Marquardt over a batch of
 trajectories.
 
-Port of grasptrajopt_tpu/opt/trajectory.py with the single-pass
-("delayed gratification") iteration, the coarse phase, `final_trust` and
-the post-scan evaluation. The decision variable of each problem is
+Port of grasptrajopt_tpu/opt/trajectory.py: the two-pass iteration (one
+linearisation, then a candidate ladder evaluated in one batched pass and
+a gain-ratio damping update), the single-pass ("delayed gratification")
+iteration with the coarse phase, `final_trust` and the post-scan
+evaluation, and the KKT step by the Thomas recursion or by cyclic
+reduction. The decision variable of each problem is
 X = q[nf:T] (the first nf steps are pinned to qc); box limits are a
 clip; the velocity regularizer is a smoothness term of weight w; the
 Gauss-Newton Hessian is block-tridiagonal and solved exactly per
@@ -26,7 +29,11 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
-from grasptrajopt_tpu_torch.ops.block_tridiag import block_tridiag_solve
+from grasptrajopt_tpu_torch.ops.block_tridiag import (
+    block_tridiag_matvec,
+    block_tridiag_solve,
+    block_tridiag_solve_cr,
+)
 
 
 class TrajectoryConfig(NamedTuple):
@@ -40,10 +47,20 @@ class TrajectoryConfig(NamedTuple):
     lambda_min: float = 1e-9
     lambda_max: float = 1e8
     jitter: float = 1e-9
-    # final_trust=True skips the post-scan residual pass: the budget's
-    # final KKT trial point is returned unevaluated, with the cost of the
-    # last accepted point
+    # trial step scales of the two-pass iteration, all evaluated in one
+    # batched residual pass
+    alphas: Tuple[float, ...] = (1.0,)
+    # single_pass=True: one residual/jac pass per iteration, the pass at
+    # the trial point being its acceptance test; the (H, g) of the last
+    # accepted point are carried so a rejected trial re-solves from them
+    single_pass: bool = False
+    # final_trust=True (single_pass only) skips the post-scan residual
+    # pass: the budget's final KKT trial point is returned unevaluated,
+    # with the cost of the last accepted point
     final_trust: bool = False
+    # cyclic_reduction=True: the KKT step by block cyclic reduction
+    # (log2 T batched levels) instead of the Thomas recursion
+    cyclic_reduction: bool = False
 
 
 def make_trajectory_solver(
@@ -70,17 +87,21 @@ def make_trajectory_solver(
       w.r.t. q_t only.
     coarse = (k, traj_term_coarse): the first k iterations run with the
       coarse whole-trajectory term in place of traj_term; the fine phase
-      restarts the accepted-cost state and carries lambda.
+      restarts the accepted-cost state and carries lambda (single pass
+      only).
 
     Returns Q (B, T, n) including the pinned prefix, cost (B,), and
-    {"lambda": (B,), "step_aux": (B, ...)}.
+    {"lambda": (B,), "accepts": (B, iterations) bool, "step_aux": (B, ...)}.
     """
     T = config.T
     nf = config.n_fixed
     F = T - nf
     w = config.smooth_weight
+    kkt_solve = block_tridiag_solve_cr if config.cyclic_reduction else block_tridiag_solve
 
     if coarse is not None:
+        if not config.single_pass:
+            raise NotImplementedError("coarse phase requires single_pass=True")
         k_coarse, term_coarse = int(coarse[0]), coarse[1]
         if not 0 <= k_coarse < config.iterations:
             raise ValueError(
@@ -172,10 +193,50 @@ def make_trajectory_solver(
             )
 
         def solve_from(H, g, lam):
-            return -block_tridiag_solve(damped_D(H, lam), L_off, g)
+            return -kkt_solve(damped_D(H, lam), L_off, g)
 
         def pick(accept, a, b):
             return torch.where(accept.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+        def iteration_two(state):
+            """Two-pass iteration: linearise at X, solve the damped KKT
+            system, evaluate every candidate X + alpha dX in ONE batched
+            residual pass, accept the best if it lowers the cost; the gain
+            ratio against the GN model sets how fast lambda drops."""
+            X, lam, _, aux_prev = state
+            step_aux = (
+                pre_iteration(assemble(X, qc_opt), params, shared)
+                if pre_iteration is not None
+                else aux_prev
+            )
+            c_now, H, g = lin_at(X, step_aux, step_residual_fn, traj_term)
+            D = damped_D(H, lam)
+            dX = -kkt_solve(D, L_off, g)
+            cands = torch.minimum(
+                torch.maximum(X[:, None] + alphas[None, :, None, None] * dX[:, None], lo), hi
+            )  # (B, A, F, n)
+            cand_costs = residuals_cost(
+                cands.reshape((B * A,) + X.shape[1:]), qc_opt_c,
+                step_aux.repeat_interleave(A, dim=0), params_c, shared, step_residual_fn, traj_term,
+            ).reshape(B, A)
+            best = torch.argmin(cand_costs, dim=1)
+            rows = torch.arange(B, device=dev)
+            X_trial, c_trial = cands[rows, best], cand_costs[rows, best]
+            step = X_trial - X  # the projected step
+            Hs = block_tridiag_matvec(D, L_off, step)
+            pred = -2.0 * torch.sum(g * step, dim=(1, 2)) - torch.sum(step * Hs, dim=(1, 2))
+            actual = c_now - c_trial
+            accept = (actual > 0.0) & torch.isfinite(c_trial)
+            good = accept & (actual / torch.clamp(pred, min=1e-12) > 0.25)
+            lam_new = torch.clamp(
+                torch.where(
+                    good, lam * config.lambda_decrease,
+                    torch.where(accept, lam * 0.7, lam * config.lambda_increase),
+                ),
+                config.lambda_min,
+                config.lambda_max,
+            )
+            return (pick(accept, X_trial, X), lam_new, torch.where(accept, c_trial, c_now), step_aux), accept
 
         def iteration_single(state, step_fn, term):
             """ONE residual/jac pass per iteration: the pass at the trial
@@ -207,12 +268,29 @@ def make_trajectory_solver(
             if pre_iteration is not None
             else torch.zeros(B, dtype=torch.long, device=dev)
         )
+        lam0 = torch.full((B,), config.lambda_init, dtype=dtype, device=dev)
+        accepts = []
+        if not config.single_pass:
+            alphas = torch.tensor(config.alphas, dtype=dtype, device=dev)
+            A = alphas.shape[0]
+            # the candidate ladder rides the batch dimension: problem b's
+            # candidate a is row b * A + a of one residual pass
+            params_c = {k: v.repeat_interleave(A, dim=0) for k, v in params.items()}
+            qc_opt_c = qc_opt.repeat_interleave(A, dim=0)
+            c0 = residuals_cost(X0, qc_opt, aux0, params, shared, step_residual_fn, traj_term)
+            state = (X0, lam0, c0, aux0)
+            for _ in range(config.iterations):
+                state, acc = iteration_two(state)
+                accepts.append(acc)
+            X, lam, c, step_aux = state
+            return assemble(X, qc_opt), c, {
+                "lambda": lam, "accepts": torch.stack(accepts, dim=1), "step_aux": step_aux,
+            }
+
         big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
         H0 = torch.zeros((B, F, n, n), dtype=dtype, device=dev)
         g0 = torch.zeros((B, F, n), dtype=dtype, device=dev)
-        lam0 = torch.full((B,), config.lambda_init, dtype=dtype, device=dev)
         state = (X0, X0, H0, g0, big, lam0, aux0)
-        accepts = []
         if k_coarse:
             for _ in range(k_coarse):
                 state, acc = iteration_single(state, step_residual_fn, term_coarse)

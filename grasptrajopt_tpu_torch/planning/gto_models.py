@@ -39,7 +39,7 @@ class GTORobotModel(RobotModel):
         surface_normals: Dict[str, np.ndarray],
         visual_offsets: Dict[str, np.ndarray],
         grid_resolution: float = 0.05,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         super().__init__(kinematics, param_joints, lower, upper, velocity, device, dtype)
@@ -80,7 +80,7 @@ class GTORobotModel(RobotModel):
         points_per_link: int = 100,
         grid_resolution: float = 0.05,
         model_dir: str = "",
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ) -> "GTORobotModel":
         """Parse the URDF and sample each collision link's visual mesh

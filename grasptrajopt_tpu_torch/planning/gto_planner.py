@@ -1,10 +1,12 @@
 """GTOPlanner: goal-set grasp trajectory optimization.
 
-Port of grasptrajopt_tpu/planning/gto_planner.py with the single-pass LM:
-`setup_optimization` builds the solver of one (goal capacity, standoff)
-signature, `pack_stacked_fields` the per-problem stacked field table,
-`plan_pergoal_batch` the per-goal tiers (one single-goal problem per
-grasp).
+Port of grasptrajopt_tpu/planning/gto_planner.py: `setup_optimization`
+builds the solver of one (goal capacity, standoff) signature (shared or
+per-problem stacked scene), `pack_stacked_fields` the stacked field table,
+`rank_seed_scores` / `rank_pick` the warm-start ranking of IK candidates,
+`plan` / `plan_goalset` the single-problem API, `plan_goalset_batch` the
+batch API, and `plan_pergoal_batch` the per-goal tiers (one single-goal
+problem per grasp).
 
   - goal-set point-match cost with the active goal chosen per iteration
     (masked argmin, optional coherence bias toward a seeded goal); the
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from grasptrajopt_tpu_torch.convert import scene_sets_from_numpy
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import sdf_cost_shaping, sdf_cost_shaping_deriv
 from grasptrajopt_tpu_torch.ops.interp import field_lookup_packed_soa_grad
 from grasptrajopt_tpu_torch.ops.nn import signed_distance_with_dir
@@ -44,14 +47,22 @@ from grasptrajopt_tpu_torch.spatial import invt, standoff, transform_points
 
 
 class PlannerSolvers(NamedTuple):
-    """solve_batch_stacked(qc_opt (B, n), X0 (B, T-2, n), params_per,
-    params_shared) -> (Q (B, T, n), cost (B,), aux): params_per holds
-    q_param (B, n_param), tf_goal (B, G, 4, 4), goal_mask (B, G),
-    base_position (B, 3), field_base (B,) and optionally goal_seed (B,);
-    params_shared holds packed_fields (B*2S, 8) in field mode, and in
-    points mode scene_points / scene_normals (C, K, 3) and target_points /
-    target_normals (C, Kt, 3) of C objects, B a multiple of C."""
+    """solve(qc_opt (B, n), X0 (B, T-2, n), params_per, params_shared)
+    -> (Q (B, T, n), cost (B,), aux): params_per holds q_param
+    (B, n_param), tf_goal (B, G, 4, 4), goal_mask (B, G), base_position
+    (B, 3) and optionally goal_seed (B,).
 
+    solve_batch_shared: one scene for the whole batch. params_shared holds
+    packed_fields (2S, 8) in field mode, and in points mode scene_points /
+    scene_normals (1, K, 3) and target_points / target_normals (1, Kt, 3).
+    solve_batch_stacked: per-problem scenes. params_per also holds
+    field_base (B,), each problem's slab of packed_fields (B*2S, 8)
+    (`pack_stacked_fields`); in points mode the sets are (C, K, 3) of C
+    objects, the B problems in C equal contiguous groups.
+    Both are one program: a shared table is a stacked one without
+    field_base."""
+
+    solve_batch_shared: callable
     solve_batch_stacked: callable
 
 
@@ -66,6 +77,9 @@ class GTOPlanner:
         iterations: int = 50,
         obstacle_mode: str = "field",
         sdf_epsilon: float = 0.02,
+        lm_alphas=None,
+        single_pass: bool = False,
+        cyclic_reduction: bool = False,
         goal_weight: float = 1.0,
         obstacle_weight: float = 10.0,
         T: int = 50,
@@ -73,8 +87,18 @@ class GTOPlanner:
         coarse_iterations: int = 0,
         coarse_stride: int = 2,
         final_trust: bool = False,
+        rank_t_stride: int = 1,
+        rank_p_stride: int = 1,
         goal_coherence: float = 0.0,
     ):
+        """See the JAX package's GTOPlanner for each knob. lm_alphas: the
+        two-pass iteration's trial step scales (None: (1.0,)); single_pass:
+        one residual/jac pass per LM iteration (coarse_iterations and
+        final_trust need it; final_trust is dropped without it);
+        cyclic_reduction: the KKT step by cyclic reduction (long horizons);
+        rank_{t,p}_stride: the warm-start ranking scores every rank_t-th
+        step (anchored at the last) and every rank_p-th surface point
+        (field mode only)."""
         self.robot = robot
         self.link_ee = link_ee
         self.link_gripper = link_gripper
@@ -93,9 +117,15 @@ class GTOPlanner:
         self.coarse_iterations = int(coarse_iterations)
         self.coarse_stride = int(coarse_stride)
         self.final_trust = bool(final_trust)
+        self.lm_alphas = None if lm_alphas is None else tuple(float(a) for a in lm_alphas)
+        self.single_pass = bool(single_pass)
+        self.cyclic_reduction = bool(cyclic_reduction)
+        self.rank_t_stride = int(rank_t_stride)
+        self.rank_p_stride = int(rank_p_stride)
         self.goal_coherence = float(goal_coherence)
         self.gripper_points = robot.gripper_points(link_gripper)
         self._solvers: Dict[tuple, PlannerSolvers] = {}
+        self._last_rank_pick = None  # seed / goal index of the last ranked warm start
 
     def setup_optimization(
         self, goal_size: int = 1, use_standoff: bool = False, axis_standoff: str = "x"
@@ -120,7 +150,6 @@ class GTOPlanner:
         )
         sqrt_ow = math.sqrt(self.obstacle_weight)
         sqrt_gw = math.sqrt(self.goal_weight)
-        origin = g.origin_tensor(dtype, dev)
         # per-step field slab: scene field before the standoff step, the
         # target-free obstacle field from it on
         phase_row = (torch.arange(T, device=dev) >= t_standoff).long()[:, None] * g.size
@@ -138,7 +167,11 @@ class GTOPlanner:
             return d_final, d_stand
 
         def field_rows(params):
-            return phase_row + params["field_base"][:, None, None]  # (B, T, 1)
+            """Row offset per (problem, step): (T, 1) for a shared table,
+            (B, T, 1) for a stacked one."""
+            if "field_base" not in params:
+                return phase_row
+            return phase_row + params["field_base"][:, None, None]
 
         def traced_points(Q, params, stride: int = 1):
             """(J_pts (B, T, P, 3, n), pts (B, T, P, 3)): world surface points
@@ -155,7 +188,9 @@ class GTOPlanner:
 
         def make_field_term(stride: int = 1):
             """(value, value_jac) whole-trajectory field term at a surface
-            point stride (stride > 1: the coarse phase's subsampled term)."""
+            point stride (stride > 1: the coarse phase's subsampled term).
+            Each is ONE K4 lookup for the whole batch, outside the
+            torch.func transforms (the origin as host floats)."""
 
             def field_term_value(Q, step_aux, params, shared):
                 q_param = params["q_param"][:, None, :]
@@ -164,7 +199,7 @@ class GTOPlanner:
                     robot.fk_components(Qf), params["base_position"][:, None, :], stride=stride
                 )  # (B, T, P) each
                 val, _, _, _ = field_lookup_packed_soa_grad(
-                    shared["packed_fields"], x, y, z, origin, g.shape, g.resolution,
+                    shared["packed_fields"], x, y, z, g.origin, g.shape, g.resolution,
                     row_offset=field_rows(params),
                 )
                 return sqrt_ow * val
@@ -173,9 +208,10 @@ class GTOPlanner:
                 # the field gradient is closed-form from the same gathered
                 # corner rows as the value
                 J_pts, pts = traced_points(Q, params, stride)
+                pts = pts.contiguous()  # x / y / z views, 3 elements apart
                 val, gx, gy, gz = field_lookup_packed_soa_grad(
                     shared["packed_fields"], pts[..., 0], pts[..., 1], pts[..., 2],
-                    origin, g.shape, g.resolution, row_offset=field_rows(params),
+                    g.origin, g.shape, g.resolution, row_offset=field_rows(params),
                 )
                 grad = torch.stack([gx, gy, gz], dim=-1)  # (B, T, P, 3)
                 J = sqrt_ow * torch.einsum("btpc,btpcn->btpn", grad, J_pts)
@@ -255,17 +291,23 @@ class GTOPlanner:
                 )
             return torch.argmin(costs, dim=1)
 
+        cfg_kwargs = {} if self.lm_alphas is None else {"alphas": self.lm_alphas}
         cfg = TrajectoryConfig(
             T=T,
             n_fixed=2,
             smooth_weight=0.01 / self.dt**2,
             iterations=self.iterations,
-            final_trust=self.final_trust,
+            single_pass=self.single_pass,
+            final_trust=self.final_trust and self.single_pass,
+            cyclic_reduction=self.cyclic_reduction,
+            **cfg_kwargs,
         )
         coarse = None
+        if self.coarse_iterations and (self.obstacle_mode == "points" or not self.single_pass):
+            raise NotImplementedError(
+                "coarse_iterations requires single_pass=True and the field obstacle term"
+            )
         if self.obstacle_mode == "points":
-            if self.coarse_iterations:
-                raise NotImplementedError("coarse_iterations requires the field obstacle term")
             traj_term = (obstacle_term_value, obstacle_term_value_jac)
         else:
             traj_term = make_field_term()
@@ -277,10 +319,10 @@ class GTOPlanner:
         lo = torch.as_tensor(robot.lower_optimized_joint_limits, dtype=dtype, device=dev)
         hi = torch.as_tensor(robot.upper_optimized_joint_limits, dtype=dtype, device=dev)
 
-        def solve_batch_stacked(qc_opt, X0, params_per, params_shared):
+        def solve(qc_opt, X0, params_per, params_shared):
             return solver(qc_opt, X0, lo, hi, params_per, params_shared)
 
-        self._solvers[key] = PlannerSolvers(solve_batch_stacked)
+        self._solvers[key] = PlannerSolvers(solve, solve)
         return self._solvers[key]
 
     def pack_stacked_fields(self, sdf_cost_all_b, sdf_cost_obstacle_b):
@@ -302,6 +344,175 @@ class GTOPlanner:
         pin = torch.zeros(qc.shape[-1], dtype=torch.bool, device=qc.device)
         pin[self.robot.parameter_joint_indexes] = True
         return torch.where(pin, qc, data)
+
+    # -- warm starts ------------------------------------------------------------
+
+    def _tensor(self, a):
+        return torch.as_tensor(a, dtype=self.robot.dtype, device=self.robot.device)
+
+    def dq_of(self, Q):
+        """Finite-difference joint velocities (ndof, T-1) of an (ndof, T)
+        host plan; param joints stay zero."""
+        dQ = np.zeros((self.robot.ndof, Q.shape[1] - 1))
+        opt_idx = self.robot.optimized_joint_indexes
+        dQ[opt_idx, :] = (Q[opt_idx, 1:] - Q[opt_idx, :-1]) / self.dt
+        return dQ
+
+    def rank_seed_scores(self, seeds, sdf_cost_obstacle, base_position, scene_obstacle=None):
+        """(costs (k,), dists (k,)) of seed trajectories (k, T, ndof): the
+        summed obstacle cost of each replayed seed (floor-indexed field
+        values, or in points mode the shaped signed distance to the
+        obstacle set `scene_obstacle`, one K2 launch) and its start-to-end
+        travel as the tie break.
+
+        Field mode with rank strides scores every rank_t-th step, anchored
+        at the last step (the grasp pose), and every rank_p-th surface
+        point."""
+        robot = self.robot
+        seeds = self._tensor(seeds)
+        base = self._tensor(base_position)
+        if self.obstacle_mode != "points" and (self.rank_t_stride > 1 or self.rank_p_stride > 1):
+            steps = torch.arange(self.T - 1, -1, -self.rank_t_stride, device=seeds.device).flip(0)
+            x, y, z = robot.surface_points_soa(
+                robot.fk_components(seeds[:, steps]), base, stride=self.rank_p_stride
+            )
+            pts = torch.stack([x, y, z], dim=-1)
+        else:
+            pts = robot.fk_surface_points(seeds, base)
+        if self.obstacle_mode == "points":
+            sd, _ = signed_distance_with_dir(
+                pts, self._tensor(scene_obstacle.points), self._tensor(scene_obstacle.normals)
+            )
+            vals = sdf_cost_shaping(sd, epsilon=self.sdf_epsilon)
+        else:
+            vals = robot.grid.lookup_nearest(self._tensor(sdf_cost_obstacle), pts)
+        costs = torch.sum(vals, dim=(1, 2))
+        dists = torch.linalg.vector_norm(seeds[:, 0] - seeds[:, -1], dim=-1)
+        return costs, dists
+
+    @staticmethod
+    def rank_pick(costs, dists):
+        """Index of the lexicographic (cost, dist) winner: among min-cost
+        seeds, the one with the smallest travel (the first on a tie)."""
+        return torch.argmin(torch.where(costs == torch.min(costs), dists, torch.full_like(dists, float("inf"))))
+
+    def _rank_warm_starts(self, qc, q_solutions, sdf_cost_obstacle, base_position, scene_obstacle=None):
+        """Seed trajectories from qc (ndof,) to each IK candidate
+        q_solutions (k, ndof), ranked by (plan cost, travel). Returns (best
+        seed (T, ndof), costs (k,), dists (k,)) and records the winner's
+        index in `_last_rank_pick`."""
+        seeds = self._seed_trajectories(qc, q_solutions)
+        costs, dists = self.rank_seed_scores(seeds, sdf_cost_obstacle, base_position, scene_obstacle)
+        best = self.rank_pick(costs, dists)
+        self._last_rank_pick = best
+        return seeds[best], costs, dists
+
+    # -- public API ---------------------------------------------------------------
+
+    def plan(self, qc, RT, sdf_cost_obstacle, base_position, q_solution=None,
+             use_standoff: bool = True, axis_standoff: str = "x"):
+        """Single-goal plan. As in the reference, only the final phase sees
+        the obstacle field: the scene field is zero. Returns host numpy
+        (Q (ndof, T), dQ (ndof, T-1), cost (1,))."""
+        RTs = np.asarray(RT)[None]
+        q_solutions = None if q_solution is None else np.asarray(q_solution).reshape(-1, 1)
+        zeros_all = np.zeros(np.shape(sdf_cost_obstacle))
+        return self.plan_goalset(
+            qc, RTs, zeros_all, sdf_cost_obstacle, base_position, q_solutions=q_solutions,
+            use_standoff=use_standoff, axis_standoff=axis_standoff,
+        )
+
+    def plan_goalset(
+        self, qc, RTs, sdf_cost_all, sdf_cost_obstacle, base_position, q_solutions=None,
+        use_standoff: bool = True, axis_standoff: str = "x", interpolate: bool = True,
+        goal_capacity=None, scene_obstacle=None, scene_target=None,
+    ):
+        """Goal-set plan of one problem, in the JAX package's host layout:
+        qc (ndof,); RTs (n, 4, 4) candidate grasps (of link_ee, base
+        frame); flat (S,) cost fields on the robot's grid (field mode) or
+        ScenePointSets `scene_obstacle` / `scene_target` (points mode);
+        q_solutions optional (ndof, k) IK candidates, ranked into the warm
+        start (interpolate=False: hold qc, then the winner's end pose from
+        the standoff step on). `goal_capacity` pads the goal set. Goals are
+        stored in float32, as the JAX package stores them.
+        Returns host numpy (Q (ndof, T), dQ (ndof, T-1), cost (1,))."""
+        robot = self.robot
+        qc = self._tensor(qc).reshape(-1)
+        RTs = np.asarray(RTs)
+        n = RTs.shape[0]
+        cap = goal_capacity or n
+        if n > cap:
+            raise ValueError(f"{n} goals exceed the goal capacity {cap}")
+        tf_goal = np.tile(np.eye(4, dtype=np.float32)[None], (cap, 1, 1))
+        tf_goal[:n] = RTs
+        goal_mask = np.zeros(cap, dtype=bool)
+        goal_mask[:n] = True
+
+        if q_solutions is None:
+            Q0_full = qc.expand(self.T, -1)
+        else:
+            best_seed, _, _ = self._rank_warm_starts(
+                qc, self._tensor(q_solutions).T, sdf_cost_obstacle, base_position, scene_obstacle
+            )
+            if interpolate:
+                Q0_full = best_seed
+            else:
+                hold = torch.arange(self.T, device=qc.device)[:, None] >= self.T + self.standoff_offset
+                Q0_full = torch.where(hold, best_seed[-1], qc)
+        q_param = robot.extract_parameter_dimensions(qc)
+        params = {
+            "q_param": q_param[None],
+            "tf_goal": self._tensor(tf_goal)[None],
+            "goal_mask": torch.as_tensor(goal_mask, device=qc.device)[None],
+            "base_position": self._tensor(base_position)[None],
+        }
+        if self.goal_coherence > 0.0 and q_solutions is not None and np.shape(q_solutions)[1] == n:
+            # goal-aligned candidates: the ranked seed's index is its goal
+            params["goal_seed"] = self._last_rank_pick.reshape(1)
+        if self.obstacle_mode == "points":
+            if scene_obstacle is None or scene_target is None:
+                raise ValueError("obstacle_mode='points' needs scene_obstacle and scene_target ScenePointSets")
+            shared = scene_sets_from_numpy(scene_obstacle, scene_target, robot.device, robot.dtype)
+        else:
+            g = robot.grid
+            shared = {"packed_fields": torch.cat(
+                [g.pack(self._tensor(sdf_cost_all)), g.pack(self._tensor(sdf_cost_obstacle))], dim=0
+            )}
+        solvers = self.setup_optimization(cap, use_standoff, axis_standoff)
+        X0 = robot.extract_optimized_dimensions(Q0_full[2:])
+        Q_opt, cost, _ = solvers.solve_batch_shared(
+            robot.extract_optimized_dimensions(qc)[None], X0[None], params, shared
+        )
+        Q = robot.assemble_q(Q_opt[0], q_param).T.cpu().numpy()
+        return Q, self.dq_of(Q), cost.cpu().numpy().reshape(1)
+
+    def plan_goalset_batch(
+        self, qc, tf_goal, goal_mask, sdf_cost_all, sdf_cost_obstacle, base_position, Q0_full,
+        use_standoff: bool = True, axis_standoff: str = "x",
+    ):
+        """B independent goal-set problems in one solve, each with its own
+        fields, on the stacked table: qc (B, ndof); tf_goal (B, cap, 4, 4);
+        goal_mask (B, cap); fields (B, S); base_position (B, 3); Q0_full
+        (B, T, ndof) warm starts. Returns tensors (Q (B, T, ndof), cost
+        (B,))."""
+        robot = self.robot
+        qc = self._tensor(qc)
+        tables, base = self.pack_stacked_fields(self._tensor(sdf_cost_all), self._tensor(sdf_cost_obstacle))
+        q_param = robot.extract_parameter_dimensions(qc)
+        params = {
+            "q_param": q_param,
+            "tf_goal": self._tensor(tf_goal),
+            "goal_mask": torch.as_tensor(goal_mask, device=qc.device),
+            "base_position": self._tensor(base_position),
+            "field_base": base,
+        }
+        solvers = self.setup_optimization(tf_goal.shape[1], use_standoff, axis_standoff)
+        Q_opt, cost, _ = solvers.solve_batch_stacked(
+            robot.extract_optimized_dimensions(qc),
+            robot.extract_optimized_dimensions(self._tensor(Q0_full)[:, 2:]),
+            params, {"packed_fields": tables},
+        )
+        return robot.assemble_q(Q_opt, q_param[:, None, :]), cost
 
     def plan_pergoal_batch(
         self, qc, tf_goal, n_goals, q_solutions, base_position,

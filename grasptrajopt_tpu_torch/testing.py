@@ -84,7 +84,7 @@ SYNTH_DEFAULT_POSE = np.array([0.0, 0.6, 0.0, -1.4, 0.0, 1.8, 0.0, 0.04, 0.04])
 
 
 def make_synthetic_gto_robot(
-    device="cpu", dtype=torch.float32, points_per_link: int = 100
+    device="cuda", dtype=torch.float32, points_per_link: int = 100
 ) -> GTORobotModel:
     robot = GTORobotModel.from_urdf_string(
         SYNTH_ARM_URDF,

@@ -110,11 +110,11 @@ def check_against_jax(Qp, cp, aux, jax_out):
 def run_port(pr, mode, obs, tf_goal, q_sols, sets, objects=(0,), fields=None):
     """The port's plan_pergoal_batch over the given objects in one batch:
     (Q (C, CAP, T, ndof), cost (C, CAP), aux)."""
-    pp = GTOPlanner(pr, "hand", "hand", standoff_distance=-0.1, **planner_kwargs(mode))
+    pp = GTOPlanner(pr, "hand", "hand", single_pass=True, standoff_distance=-0.1, **planner_kwargs(mode))
     ob = list(objects)
     scene = pack = None
     if mode == "points":
-        scene = scene_sets_from_numpy([sets[b][0] for b in ob], [sets[b][1] for b in ob], dtype=torch.float64)
+        scene = scene_sets_from_numpy([sets[b][0] for b in ob], [sets[b][1] for b in ob], device="cpu", dtype=torch.float64)
     else:
         pack = pp.pack_stacked_fields(t64(fields[0])[None], t64(fields[1])[None])
     Q, cost, aux = pp.plan_pergoal_batch(

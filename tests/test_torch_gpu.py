@@ -199,3 +199,88 @@ def test_nearest_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         nn.nearest_batched(q[:, ::2], rT)  # not contiguous
     assert (nn.nearest_launches, nn.min_sqdist_launches) == counts
+
+
+# -- K4: the packed-row field lookup ------------------------------------------
+
+K4_ORIGIN = (-0.4, -1.5, -0.4)
+K4_SHAPE = (38, 60, 42)  # the synthetic arm's 95,760-cell grid
+K4_RES = 0.05
+
+
+def _lookup_inputs(dev, lead, n_tables=1, seed=0):
+    """A stacked table of n_tables field pairs, (R, 8) float32 on `dev`,
+    and points (*lead, 3) over the grid and 0.1 m beyond it, a fifth of
+    their coordinates exactly on cell faces."""
+    from grasptrajopt_tpu_torch.ops import interp
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    S = K4_SHAPE[0] * K4_SHAPE[1] * K4_SHAPE[2]
+    fields = torch.rand((2 * n_tables, S), generator=g) * 0.1
+    table = interp.pack_corners(fields, K4_SHAPE).reshape(-1, 8)
+    origin, shape = torch.tensor(K4_ORIGIN), torch.tensor(K4_SHAPE)
+    lo, hi = origin - 0.1, origin + (shape - 1) * K4_RES + 0.1
+    pts = lo + torch.rand(lead + (3,), generator=g) * (hi - lo)
+    face = origin + torch.floor(torch.rand(lead + (3,), generator=g) * shape) * K4_RES
+    pts = torch.where(torch.rand(lead + (3,), generator=g) < 0.2, face, pts)
+    return table.to(dev), pts.to(dev), S
+
+
+def _check_lookup(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert bool(((a - b).abs() <= TOL * (1 + b.abs())).all())
+
+
+@pytest.mark.parametrize(
+    "lead,layout",
+    [
+        ((32, 50, 1_000), "shared"),  # the bench's fine pass
+        ((16, 50, 100), "stacked"),  # per-problem tables, 16 objects
+        ((3, 7, 11), "per_point"),  # ragged: not a multiple of the block
+        ((4, 50, 123), "aos"),  # the x / y / z views of (..., 3) points
+    ],
+)
+def test_field_lookup_kernel_matches_plain(cuda, lead, layout):
+    from grasptrajopt_tpu_torch.ops import interp
+
+    n_tables = 16 if layout == "stacked" else 1
+    table, pts, S = _lookup_inputs(cuda, lead, n_tables)
+    T = lead[1]
+    phase = (torch.arange(T, device=cuda) >= T - 10).long()[:, None] * S  # (T, 1)
+    if layout == "stacked":
+        row = phase + (torch.arange(lead[0], device=cuda) * 2 * S)[:, None, None]
+    elif layout == "per_point":
+        row = torch.randint(0, 2, lead, device=cuda) * S
+    else:
+        row = phase
+    if layout == "aos":
+        x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    else:
+        x, y, z = (pts[..., i].contiguous() for i in range(3))
+    before = interp.field_lookup_launches
+    got = interp.field_lookup_packed_soa_grad(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES, row_offset=row)
+    torch.cuda.synchronize()
+    assert interp.field_lookup_launches == before + 1
+    want = interp.field_lookup_packed_soa_grad_reference(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES, row_offset=row)
+    _check_lookup(got, want)
+
+
+def test_field_lookup_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from grasptrajopt_tpu_torch.ops import interp
+
+    table, pts, _ = _lookup_inputs(cuda, (2, 5, 7))
+    x, y, z = (pts[..., i].contiguous() for i in range(3))
+    before = interp.field_lookup_launches
+    with pytest.raises(TypeError):  # float64 on the card
+        interp.field_lookup_packed_soa_grad(table.double(), x.double(), y.double(), z.double(),
+                                            K4_ORIGIN, K4_SHAPE, K4_RES)
+    with pytest.raises(ValueError):  # the table on the CPU
+        interp.field_lookup_packed_soa_grad(table.cpu(), x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES)
+    with pytest.raises(ValueError):  # no common stride between the points
+        interp.field_lookup_packed_soa_grad(table, x[:, :, ::2], y[:, :, ::2], z[:, :, ::2].contiguous(),
+                                            K4_ORIGIN, K4_SHAPE, K4_RES)
+    with pytest.raises(ValueError):  # a float row offset
+        interp.field_lookup_packed_soa_grad(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES,
+                                            row_offset=torch.zeros((2, 5, 1), device=cuda))
+    assert interp.field_lookup_launches == before

@@ -41,7 +41,7 @@ def test_synthetic_robot_surface_points_bit_identical(points_per_link):
     """crc32-seeded sampling in the copied mesh module gives the same
     points and normals, so both packages compute on identical bodies."""
     jr = jax_synth(points_per_link=points_per_link)
-    pr = port_synth(dtype=torch.float64, points_per_link=points_per_link)
+    pr = port_synth(device="cpu", dtype=torch.float64, points_per_link=points_per_link)
     assert list(jr.surface_pc_map) == list(pr.surface_points)
     for name, pc in jr.surface_pc_map.items():
         np.testing.assert_array_equal(pc.points, pr.surface_points[name])
@@ -82,6 +82,22 @@ def test_render_depth_scene36_matches():
     np.testing.assert_array_equal(ij, ip)
     for name in ej.meta["object_names"]:
         np.testing.assert_array_equal(ej.grasps_world(name, 32), ep.grasps_world(name, 32))
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that places tensors runs on the card unless the
+    caller asks for the CPU (the CPU tests pass device="cpu")."""
+    import inspect
+
+    from grasptrajopt_tpu_torch import convert
+    from grasptrajopt_tpu_torch.models.robot import RobotModel
+    from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
+
+    for fn in (
+        RobotModel.__init__, GTORobotModel.__init__, GTORobotModel.from_urdf_string, port_synth,
+        convert.robot_from_numpy, convert.scene_sets_from_numpy, convert.params_from_numpy,
+    ):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 
 def test_port_imports_without_jax():

@@ -91,7 +91,7 @@ def test_assemble_extract_and_limits(robots):
 def test_port_built_from_urdf_equals_port_built_from_jax_state(robots):
     """The port's own URDF path and the convert path agree."""
     _, pr = robots
-    own = make_synthetic_gto_robot(dtype=torch.float64, points_per_link=10)
+    own = make_synthetic_gto_robot(device="cpu", dtype=torch.float64, points_per_link=10)
     q = t64(_q())
     np.testing.assert_array_equal(np_(own.fk_all(q)), np_(pr.fk_all(q)))
     for a, b in zip(own.surface_points_soa(own.fk_components(q)),

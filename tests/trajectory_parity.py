@@ -35,17 +35,33 @@ def _problem(jr):
     return qc, X0, f_all, 0.5 * f_all, params
 
 
-def check_trajectory_solver(robots, iterations, coarse, final_trust, coherence):
-    """Q to 1e-7, cost to 1e-9 relative, the same active goals and the same
-    damping. lambda is lambda_init times 0.35 per accept and 4 per reject,
-    so an equal final lambda means an equal number of accepts, and the
-    port's recorded accept sequence must reproduce it; with Q equal to
-    1e-7 the accept order is the same too."""
+def _two_pass_accepts(lam, iterations):
+    """The number of accepted steps behind a two-pass final lambda:
+    lambda_init x 0.35 per good accept, 0.7 per weak accept and 4 per
+    reject, a product that fixes each count."""
+    for good in range(iterations + 1):
+        for weak in range(iterations + 1 - good):
+            want = 1e-3 * 0.35**good * 0.7**weak * 4.0 ** (iterations - good - weak)
+            if np.isclose(lam, want, rtol=1e-9, atol=0):
+                return good + weak
+    raise AssertionError(f"lambda {lam} is no product of the damping factors")
+
+
+def check_trajectory_solver(robots, iterations, coarse, final_trust, coherence,
+                            single_pass=True, cyclic_reduction=False, lm_alphas=None, atol=1e-7):
+    """Q to `atol`, cost to 1e-9 relative, the same active goals and the
+    same damping. Single pass: lambda is lambda_init times 0.35 per accept
+    and 4 per reject, so an equal final lambda means an equal number of
+    accepts, and the port's recorded accept sequence must reproduce it;
+    two-pass: the accept count behind lambda (`_two_pass_accepts`) must
+    equal the port's. With Q equal to `atol` the accept order is the same
+    too."""
     jr, pr = robots
     qc, X0, f_all, f_obs, params = _problem(jr)
     kw = dict(iterations=iterations, coarse_iterations=coarse, final_trust=final_trust,
-              standoff_distance=-0.1, goal_coherence=coherence)
-    jp = JaxPlanner(jr, "hand", "hand", single_pass=True, **kw)
+              standoff_distance=-0.1, goal_coherence=coherence, single_pass=single_pass,
+              cyclic_reduction=cyclic_reduction, lm_alphas=lm_alphas)
+    jp = JaxPlanner(jr, "hand", "hand", **kw)
     tables, base = jp.pack_stacked_fields(f_all, f_obs)
     per = {k: jnp.asarray(v) for k, v in params.items()}
     per["field_base"] = base
@@ -56,7 +72,7 @@ def check_trajectory_solver(robots, iterations, coarse, final_trust, coherence):
     )
 
     pp = GTOPlanner(pr, "hand", "hand", **kw)
-    per_t = params_from_numpy({k: np.array(v) for k, v in per.items()}, dtype=torch.float64)
+    per_t = params_from_numpy({k: np.array(v) for k, v in per.items()}, device="cpu", dtype=torch.float64)
     tables_t, base_t = pp.pack_stacked_fields(t64(f_all), t64(f_obs))
     np.testing.assert_array_equal(np_(tables_t), np.asarray(tables))
     np.testing.assert_array_equal(np_(base_t), np.asarray(base))
@@ -64,12 +80,16 @@ def check_trajectory_solver(robots, iterations, coarse, final_trust, coherence):
         t64(qc[:7]).expand(2, 7), t64(X0), per_t, {"packed_fields": tables_t}
     )
 
-    np.testing.assert_allclose(np_(Qp), np.asarray(Qj), atol=1e-7, rtol=0)
+    np.testing.assert_allclose(np_(Qp), np.asarray(Qj), atol=atol, rtol=0)
     np.testing.assert_allclose(np_(cp), np.asarray(cj), rtol=1e-9, atol=0)
     np.testing.assert_array_equal(np_(auxp["step_aux"]), np.asarray(auxj["step_aux"]))
     np.testing.assert_array_equal(np_(auxp["lambda"]), np.asarray(auxj["lambda"]))
     acc = np_(auxp["accepts"])
     assert acc.shape == (2, iterations)
-    lam = 1e-3 * np.prod(np.where(acc, 0.35, 4.0), axis=1)
-    np.testing.assert_allclose(np_(auxp["lambda"]), lam, rtol=1e-12)
+    if single_pass:
+        lam = 1e-3 * np.prod(np.where(acc, 0.35, 4.0), axis=1)
+        np.testing.assert_allclose(np_(auxp["lambda"]), lam, rtol=1e-12)
+    else:
+        for b in range(2):
+            assert acc[b].sum() == _two_pass_accepts(float(np.asarray(auxj["lambda"])[b]), iterations)
     return np_(Qp), np_(cp)
