@@ -17,7 +17,8 @@ result line:
   3. kernel vs plain: K1 against its plain-torch version on the same CUDA
      tensors, at the perception-to-plan path's widths (B = 16 clouds,
      M = 95,760 workspace grid points, N = 12,288 obstacle and 2,048 target
-     points, and the pre-filter's 3,200 per-object queries) and at ragged
+     points, and the pre-filter's 9,600 per-object queries: 32 grasps x
+     the gripper model's 300 points) and at ragged
      sizes with an all-invalid cloud; fails above 1e-5 m^2 (squared
      distances here are below ~10 m^2, and fused multiply-adds move a
      value by a few float32 ulp, ~1e-6); median CUDA-event times of both;
@@ -59,8 +60,10 @@ result line:
      the plain K2's, and the rescue tier's final fields with the plain
      K4's in the layout and with the per-problem row bases of its
      launches, at (512, 50, 1000) and (512, 50, 500) body points. Both
-     tiers run over every object, because the replay scorer that picks
-     the objects to escalate is not ported;
+     tiers run over every object (a throughput measure; the closed loop
+     of phase 8 runs them only where the replay scorer asks); the replay
+     scorer's verdicts on the tiers' plans beside their clearance are
+     reported;
   7. bench solve (grasptrajopt_tpu_torch.bench, the solve the JAX
      package's bench.py measures): 32 problems of 8 goals against one
      shared slab field, the synthetic arm's 1,000 body points, IK warm
@@ -89,7 +92,37 @@ result line:
      stride); the
      quality gates reported, not gated; cyclic reduction against the
      Thomas solve at (32, 198, 7, 7) to 1e-4 relative;
-  8. result: the nvidia-smi line, one JSON line of kernel records (with
+  8. closed loop (grasptrajopt_tpu_torch.synthetic_eval, the harness a
+     user runs): the synthetic arm and its gripper, one object a trial at
+     full width (160x160, 32 grasps, 1,000 body points, the bench's
+     planner flavour): a warm-up trial, then tabletop scene 10 (nearest
+     first, 5 objects) and shelf scene 10 (random order, 3 objects, two
+     fused views, the planning fields from the first on a 2.5 cm grid
+     from a 1 cm dedup). Per trial the tiers that ran (goal-set plan,
+     rescue, deep, exact) and exact launch counts: K1 = 2 field builds +
+     1 grasp filter + 1 per replay scoring (the pipeline's and the
+     harness's; a fused cloud is one launch), K4 = 3 per goal-set plan
+     and per rescue + 13 per deep tier, K2 = 26 per exact tier, K3 none;
+     every plan finite, within the limits and pinned; every solve of
+     every trial against the plain kernel on the tensors the solver got:
+     K4 at the final plans' body points on the goal-set plan's shared
+     table and the rescue's and deep tier's one-object stacked table
+     (C = 1, G = 32, its row bases), fine and coarse stride, on the 5 cm
+     and the shelf's 2.5 cm grid, and K2 for an exact tier; the result
+     files round-trip through aggregate_results; K1 at the last tabletop
+     and the last shelf trial's B = 1 launches (the two fields, 95,760 x
+     25,600 and 766,080 x the downsampled first view; the filter; each
+     replay, on the shelf over both views fused) against plain at
+     FIELD_TOL with identical inside verdicts, and timed at the tabletop's
+     field and one-plan replay shapes against its bound; the exact tier on
+     the last shelf trial's observation, goals and IK solutions through
+     the pipeline's own tier method (the gates ask for it only after a
+     colliding rescue): K2 = 26 launches and no other kernel, its plans
+     checked, K2 against plain at their final body points on the scene set
+     it planned against; the deep tier likewise (K4 = 13, on the shelf's
+     table); one failing trial again under torch.profiler.
+     Trial lines, tiers, launches and the aggregate are printed, not gated;
+  9. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4, the library call's time),
      and the last line {"ok": true, "device": {...}}.
 """
@@ -219,13 +252,14 @@ def phase_kernel_vs_plain(grid_pts, dev):
         return nn._pack_refT(ref, mask)
 
     grid = torch.as_tensor(grid_pts, dtype=torch.float32, device=dev)
+    # the pre-filter's queries: 32 grasps x the gripper model's 300 points
     per_object = torch.as_tensor(
-        rng.uniform(lo, hi, size=(16, 3_200, 3)), dtype=torch.float32, device=dev
+        rng.uniform(lo, hi, size=(16, 9_600, 3)), dtype=torch.float32, device=dev
     )
     cases = [  # (name, queries, packed clouds, part of the slice)
         ("obstacle pass B=16 M=95760 N=12288", grid, clouds(16, 12_288), True),
         ("target pass B=16 M=95760 N=2048", grid, clouds(16, 2_048), True),
-        ("pre-filter B=16 M=3200/cloud N=12288", per_object, clouds(16, 12_288), True),
+        ("pre-filter B=16 M=9600/cloud N=12288", per_object, clouds(16, 12_288), True),
         ("ragged B=3 M=1000 N=1000", grid[:1_000], clouds(3, 1_000), False),
         ("ragged B=5 M=1025 N=2049", grid[:1_025], clouds(5, 2_049), False),
         ("ragged B=2 M=1 N=1", grid[:1], clouds(2, 1, valid=1.0), False),
@@ -430,13 +464,14 @@ def phase_slice(dev, cfg=None):
     )
     from grasptrajopt_tpu_torch.fields.depth_point_cloud import camera_outside, cost_fields_from_d2
     from grasptrajopt_tpu_torch.ops import interp, nn
-    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gripper, make_synthetic_gto_robot
 
     cfg = cfg or SliceConfig()
     t0 = time.perf_counter()
     obs = collect_observations(cfg)
     robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
-    path = PerceptionToPlan(robot, cfg)
+    gripper = make_synthetic_gripper(device=dev, dtype=torch.float32, points_per_link=100)
+    path = PerceptionToPlan(robot, gripper, cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     print(f"[slice] set-up {time.perf_counter() - t0:.2f} s: {cfg.batch} objects, "
           f"{cfg.goal_capacity} grasps each, {robot.num_surface_points} body points, "
@@ -563,7 +598,42 @@ def phase_pergoal(path, obs, out, dev):
               "step 0 left out): "
               + " ".join(f"{v:.4f}" for v in sd_min.tolist()))
     print(f"[pergoal] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    pergoal_replay_verdicts(path, obs, pg)
     return k2, k3
+
+
+def pergoal_replay_verdicts(path, obs, pg):
+    """What the replay scorer (planning/evaluate.py: more than 5 body
+    points inside the obstacle cloud at a step, beyond those inside at
+    step 0) says of the tiers' plans whose clearance (the points-mode
+    signed distance to the 2 cm scene set) is negative: each object's real
+    goal plans replayed against its full obstacle cloud, one K1 launch per
+    object and tier. Reported, not gated."""
+    import numpy as np
+
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+    from grasptrajopt_tpu_torch.planning.evaluate import score_plans_pergoal
+
+    cfg, robot = path.cfg, path.robot
+    for tier in ("exact", "rescue"):
+        n_neg = n_neg_hit = n_pos = n_pos_hit = worst = 0
+        for b in range(obs.depth.shape[0]):
+            n_b = int(pg["n_goals"][b])
+            d_obs = np.where(obs.target_mask[b], cfg.depth_threshold, obs.depth[b])
+            cloud = DepthPointCloud(d_obs, obs.K, obs.cam_pose[b], obs.target_mask[b],
+                                    threshold=cfg.depth_threshold, device=robot.device)
+            plans = pg[f"Q_{tier}"][b, :n_b].transpose(1, 2).cpu().numpy()
+            goals = pg["tf_goal"][b, :n_b].cpu().numpy()
+            scores = score_plans_pergoal(robot, path.link_ee, plans, goals, cloud, obs.base_position)
+            for s, sd in zip(scores, pg[f"sd_{tier}"][b, :n_b].tolist()):
+                worst = max(worst, s["max_inside_points"])
+                if sd < 0:
+                    n_neg, n_neg_hit = n_neg + 1, n_neg_hit + int(s["collision"])
+                else:
+                    n_pos, n_pos_hit = n_pos + 1, n_pos_hit + int(s["collision"])
+        print(f"[pergoal] {tier} tier, replay scorer on the full obstacle clouds: {n_neg_hit} of {n_neg} plans "
+              f"with negative clearance collide, {n_pos_hit} of {n_pos} with clearance >= 0; at most {worst} "
+              "points inside at a step beyond step 0 (reported, not gated)")
 
 
 def check_lookup(name, got, want):
@@ -877,6 +947,474 @@ def phase_bench(dev):
     return k4, default_launches
 
 
+# the closed-loop phase's planner flavour: the bench's (3 iterations, single
+# pass, coarse 2+1, final_trust); its kernel launches a solve
+CLOSED_LOOP_FLAVOUR = dict(iterations=3, single_pass=True, coarse_iterations=2, final_trust=True)
+K4_PLAN = 3  # the goal-set plan and the rescue tier: 2 coarse + 1 fine, final_trust
+K4_DEEP = 13  # the deep tier: 12 iterations + the final evaluation, no coarse phase
+K2_EXACT = 2 * (12 + 1)  # the exact tier: two point sets a pass, 12 iterations + 1
+
+
+class TrialRecorder:
+    """Per trial of the closed-loop harness: the kernel launches, the
+    planner tiers that ran, each tier's solve as the solver got it (the
+    planner, its per-problem params, its shared table or scene sets, the
+    final Q), the replay scorings and the signed-distance queries (cloud,
+    queries, result) of the trial, and what the exact tier would be given
+    (the pipeline, its observation, the goal-set plan's goals and IK
+    solutions, the scorer's obstacle cloud). It wraps, in this script only,
+    the pipeline's entry (`plan_object`, which opens a trial), its solves
+    (`GTOPlanner.plan_goalset`, `GraspPipeline._pergoal`, whose planner
+    names the tier, and the solver that `GTOPlanner.setup_optimization`
+    hands out), the replay scorer's two entry points and
+    `DepthPointCloud.get_sdf`; `restore` undoes it."""
+
+    def __init__(self):
+        self.trials, self.cur, self._saved = [], None, []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def install(self):
+        import torch
+
+        from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+        from grasptrajopt_tpu_torch.planning import evaluate
+        from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
+        from grasptrajopt_tpu_torch.planning.pipeline import GraspPipeline
+
+        rec = self
+
+        def plan_object(orig):
+            def run(pipeline, *args, **kwargs):
+                rec.start()
+                rec.cur.update(pipeline=pipeline, observation=args)
+                t0 = time.perf_counter()
+                out = orig(pipeline, *args, **kwargs)
+                torch.cuda.synchronize()
+                rec.cur["wall_s"] = time.perf_counter() - t0
+                return out
+            return run
+
+        def plan_goalset(orig):
+            def run(planner, *args, **kwargs):
+                rec.cur["tiers"].append("plan")
+                rec.cur["plan_args"] = (args, kwargs)
+                return orig(planner, *args, **kwargs)
+            return run
+
+        def pergoal(orig):
+            def run(pipeline, planner, *args, **kwargs):
+                tier = {id(pipeline.planner): "rescue", id(pipeline._planner_deep): "deep",
+                        id(pipeline._planner_exact): "exact"}[id(planner)]
+                rec.cur["tiers"].append(tier)
+                return orig(pipeline, planner, *args, **kwargs)
+            return run
+
+        def setup_optimization(orig):
+            def run(planner, *args, **kwargs):
+                solvers = orig(planner, *args, **kwargs)
+
+                def record(solve):
+                    def go(qc_opt, X0, params, shared):
+                        out = solve(qc_opt, X0, params, shared)
+                        rec.cur["solves"].append((planner, params, shared, out[0]))
+                        return out
+                    return go
+                return type(solvers)(*(record(s) for s in solvers))
+            return run
+
+        def replay(cloud_arg):
+            def make(orig):
+                def run(*args, **kwargs):
+                    if rec.cur is not None:  # outside a trial: not recorded
+                        rec.cur["replays"] += 1
+                        rec.cur["obstacle_cloud"] = args[cloud_arg]
+                    return orig(*args, **kwargs)
+                return run
+            return make
+
+        def get_sdf(orig):
+            def run(cloud, query_points):
+                out = orig(cloud, query_points)
+                if rec.cur is not None:
+                    rec.cur["sdf"].append((cloud, cloud._queries(query_points), out))
+                return out
+            return run
+
+        self._patch(GraspPipeline, "plan_object", plan_object)
+        self._patch(GTOPlanner, "plan_goalset", plan_goalset)
+        self._patch(GraspPipeline, "_pergoal", pergoal)
+        self._patch(GTOPlanner, "setup_optimization", setup_optimization)
+        self._patch(evaluate, "check_plan_collision", replay(2))  # (robot, plan, cloud, ...)
+        self._patch(evaluate, "score_plans_pergoal", replay(4))  # (robot, link, plans, goals, cloud, ...)
+        self._patch(DepthPointCloud, "get_sdf", get_sdf)
+
+    def restore(self):
+        self.close()
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+
+    def start(self):
+        from grasptrajopt_tpu_torch.ops import interp, nn
+
+        self.close()
+        nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+        self.cur = {"tiers": [], "replays": 0, "sdf": [], "solves": []}
+
+    def close(self):
+        """Ends the open trial (its harness scoring included): reads the
+        counts, keeps the signed-distance records of this trial only."""
+        import torch
+
+        from grasptrajopt_tpu_torch.ops import interp, nn
+
+        if self.cur is None:
+            return
+        torch.cuda.synchronize()
+        self.cur["launches"] = {"K1": nn.min_d2_launches, "K2": nn.nearest_launches,
+                                "K3": nn.min_sqdist_launches, "K4": interp.field_lookup_launches}
+        for t in self.trials:
+            t["sdf"] = []
+        self.trials.append(self.cur)
+        self.cur = None
+
+
+def expected_launches(trial) -> dict:
+    """K1: the two field builds and the grasp filter, and one per replay
+    scoring (the pipeline's and the harness's); K4: 3 for the goal-set
+    plan and for the rescue, 13 for the deep tier; K2: 26 for the exact
+    tier; K3 none."""
+    tiers = trial["tiers"]
+    return {
+        "K1": 3 + trial["replays"],
+        "K2": K2_EXACT * tiers.count("exact"),
+        "K3": 0,
+        "K4": K4_PLAN * (tiers.count("plan") + tiers.count("rescue")) + K4_DEEP * tiers.count("deep"),
+    }
+
+
+def check_k1_records(records):
+    """K1 against its plain version on the same CUDA tensors at each B = 1
+    launch of one trial: d2 within FIELD_TOL, the shaped field of a build
+    within FIELD_TOL, and every replay sign (inside or not) identical.
+    Returns [(M, N, max |d2 err|)] per launch."""
+    import torch
+
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import sdf_cost_shaping
+    from grasptrajopt_tpu_torch.ops import nn
+
+    out = []
+    for cloud, q, got in records:
+        rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
+        qc = q.contiguous()
+        kernel = nn.min_d2_batched(qc, rT)
+        plain = nn.min_d2_batched_reference(qc, rT)
+        err = float((kernel.double() - plain.double()).abs().max())
+        if not err <= FIELD_TOL:
+            raise AssertionError(f"K1 at B=1 M={q.shape[0]} N={rT.shape[2]}: max |d2 err| {err:.3e}")
+        d = torch.sqrt(plain[0])
+        want = torch.where(cloud.is_outside(qc), d, -d)
+        if not torch.equal(got < 0, want < 0):
+            raise AssertionError(f"K1 at B=1 M={q.shape[0]}: the inside verdicts differ from plain")
+        field_err = float((sdf_cost_shaping(got) - sdf_cost_shaping(want)).abs().max())
+        if not field_err <= FIELD_TOL:
+            raise AssertionError(f"K1 at B=1 M={q.shape[0]}: shaped field differs from plain by {field_err:.3e}")
+        out.append((q.shape[0], rT.shape[2], err))
+        del kernel, plain
+    return out
+
+
+def time_k1(cloud, q):
+    """(kernel ms, plain ms, bound ms, bound_by) of K1 at one B = 1 launch."""
+    from grasptrajopt_tpu_torch.ops import nn
+
+    rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
+    qc = q.contiguous()
+    kernel_t, plain_t = [], []
+    for _ in range(3):  # in turns: plain, kernel
+        plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(qc, rT), 1)
+        kernel_t += cuda_ms(lambda: nn.min_d2_batched(qc, rT), 1)
+    M, N = qc.shape[0], rT.shape[2]
+    bm, by = bound_ms(4 * (qc.numel() + rT.numel() + M), 8 * M * N)
+    return statistics.median(kernel_t), statistics.median(plain_t), bm, by
+
+
+def check_trial_solves(name, trial):
+    """Each tier's solve of one trial against the plain kernel on the
+    tensors the solver got: K4 at the final plans' body points on the
+    field tiers' tables (the goal-set plan's shared table, the rescue's
+    and the deep tier's one-object stacked table with its row bases, the
+    fine and, with a coarse phase, the coarse stride: check_plan_fields),
+    and K2 at the exact tier's final body points on the scene set it
+    planned against. Returns [(tier, problems, kernel, max |err|)]."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import nn
+
+    if len(trial["solves"]) != len(trial["tiers"]):
+        raise AssertionError(f"{name}: {len(trial['solves'])} solves recorded for the tiers {trial['tiers']}")
+    out = []
+    for tier, (planner, params, shared, Q_opt) in zip(trial["tiers"], trial["solves"]):
+        robot = planner.robot
+        Q_full = robot.assemble_q(Q_opt, params["q_param"][:, None, :])
+        base = params["base_position"][:, None, :]
+        if "packed_fields" in shared:
+            err = check_plan_fields(f"{name} {tier} final fields", planner, shared["packed_fields"], Q_full,
+                                    base, params.get("field_base"))
+            out.append((tier, Q_full.shape[0], "K4", err))
+        else:
+            C = shared["scene_points"].shape[0]
+            pts = torch.stack(planner_points(robot, Q_full, base), dim=-1).reshape(C, -1, 3).contiguous()
+            rT = nn._pack_refT(shared["scene_points"])
+            err = check_nearest(
+                f"{name} {tier} final obstacle distances", pts, rT, shared["scene_normals"],
+                nn.nearest_batched(pts, rT, shared["scene_normals"]),
+                nn.nearest_batched_reference(pts, rT, shared["scene_normals"]),
+            )
+            out.append((tier, Q_full.shape[0], "K2", err))
+    return out
+
+
+def check_escalation_tier(tier, name, trial, rec):
+    """One escalation tier (`exact`: points mode, K2; `deep`: the deeper
+    field re-solve, K4) on one trial's observation, goals and IK
+    solutions, through the pipeline's own tier method with the arguments
+    plan_object gives it (the counted trials ran the tiers only where
+    their gates asked), recorded as a trial of its own. Requires the
+    tier's launches (K2 = 26, or K4 = 13) and no other kernel; its plans
+    finite, within the limits and pinned; the kernel against plain at the
+    plans' final body points on the scene set or the table the tier
+    planned against (check_trial_solves); reports the replay scorer's
+    verdicts on the plans."""
+    import numpy as np
+    import torch
+
+    from grasptrajopt_tpu_torch.planning.evaluate import score_plans_pergoal
+
+    pipeline = trial["pipeline"]
+    robot = pipeline.robot
+    qc, depth, K, cam_pose, target_mask = trial["observation"][:5]
+    args, kwargs = trial["plan_args"]  # plan_goalset(qc, RT_base, sdf_all, sdf_obs, base_position, q_solutions)
+    RT_base, sdf_all, sdf_obs, base_position, q_solutions = args[1:6]
+    cap = kwargs["goal_capacity"]
+    n = RT_base.shape[0]
+
+    rec.start()
+    t0 = time.perf_counter()
+    if tier == "exact":
+        Q_e, cost_e = pipeline._plan_pergoal_exact(
+            qc, RT_base, base_position, q_solutions, cap, depth, K, cam_pose, target_mask,
+        )
+    else:
+        Q_e, cost_e = pipeline._plan_pergoal_deep(qc, RT_base, sdf_all, sdf_obs, base_position, q_solutions, cap)
+    rec.close()
+    wall_s = time.perf_counter() - t0
+    probe = rec.trials.pop()
+    want = {"K1": 0, "K2": K2_EXACT if tier == "exact" else 0, "K3": 0, "K4": K4_DEEP if tier == "deep" else 0}
+    if probe["tiers"] != [tier] or probe["launches"] != want:
+        raise AssertionError(f"{name}: the {tier} tier ran {probe['tiers']} and launched {probe['launches']}, "
+                             f"expected [{tier!r}] and {want}")
+    if Q_e.shape[:2] != (n, robot.ndof) or cost_e.shape != (n,) or not np.isfinite(cost_e).all():
+        raise AssertionError(f"{name}: {tier} tier plans {Q_e.shape}, costs {cost_e.shape} (finite: "
+                             f"{bool(np.isfinite(cost_e).all())}) for {n} goals")
+    Q = torch.as_tensor(np.ascontiguousarray(Q_e.transpose(0, 2, 1)), dtype=robot.dtype, device=robot.device)
+    check_plans(f"{name} {tier} tier", Q,
+                torch.as_tensor(np.asarray(qc), dtype=robot.dtype, device=robot.device), robot)
+    [(_, problems, kernel, err)] = check_trial_solves(name, probe)
+    shared = probe["solves"][0][2]
+    source = (f"obstacle set {int(shared['scene_mask'].sum())} of {shared['scene_points'].shape[1]} points"
+              if tier == "exact" else f"table {shared['packed_fields'].shape[0]} rows")
+    scores = score_plans_pergoal(
+        robot, pipeline.link_ee, Q_e, RT_base, trial["obstacle_cloud"], base_position,
+        pos_tol=pipeline.rescue_pos_tol, rot_tol_deg=pipeline.rescue_rot_tol_deg,
+    )
+    print(f"[closed-loop] {tier} tier on {name}'s observation (C=1, {cap} goal slots, {n} goals, "
+          f"{len(pipeline._as_views(depth, cam_pose, target_mask)[0])} view(s), {source}): launches "
+          f"{probe['launches']} (as expected), plans finite, within limits, pinned; final "
+          f"{'obstacle d2' if tier == 'exact' else 'fields'} of its {problems} problems vs plain {kernel} "
+          f"max |err| {err:.3e}; tier wall {wall_s:.3f} s; the replay scorer: "
+          f"{sum(s['reached'] for s in scores)} of {n} reach, {sum(s['collision'] for s in scores)} "
+          f"collide, {sum(s['reward'] for s in scores)} pass (reported, not gated)")
+
+
+def profile_trial(fn) -> dict:
+    """Where one trial's time goes: the host wall time of `fn` (the trial
+    run again), then torch.profiler's device time and device operations
+    over a second run of it (device activity only: tracing the host's
+    ~250k launches too costs minutes); busy = device time / unprofiled
+    wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "seconds": time.perf_counter() - t1,
+        "wall_ms": 1e3 * wall_s, "device_ms": device_ms, "device_ops": sum(e.count for e in ops),
+        "busy": device_ms / (1e3 * wall_s),
+        "top": [[e.key[:70], e.count, round(e.self_device_time_total / 1e3, 3)] for e in top],
+    }
+
+
+def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link: int = 100, size: int = 160):
+    """The closed-loop harness (grasptrajopt_tpu_torch.synthetic_eval) on
+    the synthetic arm and its gripper, one object a trial at full width:
+    a warm-up trial, tabletop scene 10 (nearest first, 5 objects) and shelf
+    scene 10 (random order, `shelf_objects` objects, 2 fused views, the
+    planning fields from the first on a 2.5 cm grid). Per trial the tiers
+    that ran and the exact launch counts they imply; every plan finite,
+    within the limits and pinned; each solve against the plain kernel
+    (check_trial_solves); the result files round-trip through
+    aggregate_results; K1 at the pipeline's B = 1 launches of the last
+    tabletop and the last shelf trial against plain, and timed at the
+    tabletop's field and replay shapes; both escalation tiers on the last
+    shelf trial's observation (check_escalation_tier); one trial whose goal-set plan
+    failed its gates profiled."""
+    import os
+
+    import torch
+
+    from grasptrajopt_tpu_torch import synthetic_eval as se
+    from grasptrajopt_tpu_torch.testing import (
+        SYNTH_EVAL_CONFIG, make_synthetic_gripper, make_synthetic_gto_robot,
+    )
+    from grasptrajopt_tpu_torch.utils.results import aggregate_results, load_results
+
+    out_dir = out_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs", "closed_loop")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = dict(SYNTH_EVAL_CONFIG)
+    gripper = make_synthetic_gripper(device=dev, dtype=torch.float32, points_per_link=points_per_link)
+    robots = {
+        st: make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=points_per_link,
+                                     grid_resolution=se.SCENE_KNOBS[st]["grid_resolution"])
+        for st in ("tabletop", "shelf")
+    }
+    flavour = dict(goal_capacity=32, width=size, height=size, coarse_stride=2, **CLOSED_LOOP_FLAVOUR)
+    qc = torch.as_tensor(cfg["default_pose"], dtype=torch.float32, device=dev)
+
+    def run(st, scene_ids, n_objects, orderings, path=None, prior=None):
+        return se.evaluate_scenes(
+            robots[st], gripper, cfg, scene_type=st, scene_ids=scene_ids, n_objects=n_objects,
+            orderings=orderings, checkpoint_path=path, prior=prior, **flavour,
+        )
+
+    t0 = time.perf_counter()
+    print(f"[closed-loop] synth7 ({robots['tabletop'].num_surface_points} body points) with its gripper "
+          f"({gripper.num_surface_points} points), float32, {size}x{size}, goal capacity 32, planner "
+          f"{json.dumps(CLOSED_LOOP_FLAVOUR)}; grids tabletop {robots['tabletop'].grid.size} and shelf "
+          f"{robots['shelf'].grid.size} cells")
+    run("tabletop", [36], 1, ["nearest_first"])  # warm-up, not counted
+    print(f"[closed-loop] warm-up trial (scene 36, 1 object) {time.perf_counter() - t0:.1f} s")
+
+    rec = TrialRecorder()
+    rec.install()
+    results = {}
+    try:
+        for st, ordering, n_obj in (("tabletop", "nearest_first", 5), ("shelf", "random", shelf_objects)):
+            path = os.path.join(out_dir, f"GTO_synthetic_synth7_{st}.json")
+            first = len(rec.trials)
+            results[st] = run(st, [10], n_obj, [ordering], path=path)
+            rec.close()
+            trials = rec.trials[first:]
+            names = list(results[st]["10"][ordering])
+            if len(trials) != len(names):
+                raise AssertionError(f"{st}: {len(trials)} trials recorded for {len(names)} objects")
+            for name, trial in zip(names, trials):
+                r = results[st]["10"][ordering][name]
+                want = expected_launches(trial)
+                if trial["launches"] != want:
+                    raise AssertionError(f"{st} {name}: tiers {trial['tiers']}, {trial['replays']} replays: "
+                                         f"launches {trial['launches']}, expected {want}")
+                tiers = trial["tiers"]
+                if ("exact" in tiers or "deep" in tiers) and "rescue" not in tiers:
+                    raise AssertionError(f"{st} {name}: an escalation tier ran without the rescue: {tiers}")
+                if "plan" in r:
+                    Q = torch.as_tensor(r["plan"], dtype=torch.float32, device=dev).T
+                    check_plans(f"{st} {name}", Q, qc, robots[st])
+                solved = check_trial_solves(f"{st} {name}", trial)
+                trial["solves"] = None
+                print(f"[closed-loop] {st} {name}: tiers {tiers}, replays {trial['replays']}, launches "
+                      f"{trial['launches']} (as expected), stage {r['stage']}, reward {r['reward']}, "
+                      f"rescued {r['rescued']}, escalated {r['escalated']}, err_pos {r.get('err_pos', float('nan')):.4f}, "
+                      f"err_rot {r.get('err_rot', float('nan')):.2f}, max inside {r.get('max_inside_points', '-')}, "
+                      f"checking / IK / planning {r['checking_time']:.3f} / {r['ik_time']:.3f} / "
+                      f"{r['planning_time']:.3f} s, trial wall {trial['wall_s']:.3f} s")
+                print(f"[closed-loop] {st} {name}: each solve's final plans vs plain (tier, problems, kernel, "
+                      f"max |err|): " + ", ".join(f"{t} {b} {k} {e:.3e}" for t, b, k, e in solved))
+            loaded = load_results(path)
+            if json.dumps(loaded, sort_keys=True) != json.dumps(results[st], sort_keys=True):
+                raise AssertionError(f"{st}: the result file does not round-trip")
+            if aggregate_results(loaded) != aggregate_results(results[st]):
+                raise AssertionError(f"{st}: aggregate_results differs on the loaded file")
+            print(f"[closed-loop] {st} aggregate: {json.dumps(se.summary(loaded))} (result file {path}); "
+                  f"{time.perf_counter() - t0:.1f} s into the phase")
+            if st == "tabletop":
+                records = trials[-1]["sdf"]
+                fail = next((i for i, t in enumerate(trials) if "rescue" in t["tiers"]), len(trials) - 1)
+                fail_name, fail_wall = names[fail], trials[fail]["wall_s"]
+            else:  # the escalation tiers' check: the last shelf trial that planned (two fused views)
+                shelf_records = trials[-1]["sdf"]
+                probe_name, probe_trial = next(
+                    ((n, t) for n, t in reversed(list(zip(names, trials))) if "plan_args" in t), (None, None)
+                )
+                if probe_trial is None:
+                    raise AssertionError("no shelf trial reached the goal-set plan")
+        for tier in ("exact", "deep"):
+            check_escalation_tier(tier, f"shelf {probe_name}", probe_trial, rec)
+        del probe_trial
+    finally:
+        rec.restore()
+
+    # K1 at the pipeline's B = 1 launch shapes of the last tabletop and the
+    # last shelf trial (its field builds over the downsampled first view,
+    # its filter over the first view, its replays over both views fused)
+    for st, recs in (("tabletop", records), ("shelf", shelf_records)):
+        checked = check_k1_records(recs)
+        print(f"[closed-loop] K1 vs plain at the last {st} trial's B=1 launches (M queries x N cloud "
+              "points, max |d2 err|): " + ", ".join(f"{m} x {n}: {e:.3e}" for m, n, e in checked)
+              + f" (tolerance {FIELD_TOL:g}); fields and inside verdicts as plain's; "
+              f"{time.perf_counter() - t0:.1f} s into the phase")
+    del shelf_records
+    field = next(r for r in records if r[1].shape[0] == robots["tabletop"].grid.size)
+    replay = next(r for r in records if r[1].shape[0] == 50 * robots["tabletop"].num_surface_points)
+    for label, (cloud, q, _) in (("field build", field), ("replay of one plan", replay)):
+        km, pm, bm, by = time_k1(cloud, q)
+        print(f"[closed-loop] K1 {label} B=1 M={q.shape[0]} N={cloud.points_padded.shape[0]}: median kernel "
+              f"{km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms ({by}), {bm / km:.1%} of the bound")
+    del records, field, replay
+
+    # a trial whose goal-set plan failed its gates, again and profiled:
+    # the other tabletop objects come from the counted run's results
+    # (skipped, still removed from the scene)
+    order = list(results["tabletop"]["10"]["nearest_first"])
+    prior = {"10": {"nearest_first": {n: results["tabletop"]["10"]["nearest_first"][n]
+                                      for n in order if n != fail_name}}}
+    prof = profile_trial(lambda: run("tabletop", [10], 5, ["nearest_first"], prior=prior))
+    print(f"[closed-loop] profile of trial {fail_name} (tabletop scene 10, its plan_object wall "
+          f"{fail_wall:.3f} s in the counted run) again, with its harness scoring: "
+          f"unprofiled wall {prof['wall_ms']:.1f} ms, device time {prof['device_ms']:.1f} ms, "
+          f"{prof['device_ops']} device ops, busy {prof['busy']:.1%}; top {json.dumps(prof['top'])}; "
+          f"the profiled run and its processing {prof['seconds']:.1f} s")
+
+    merged = {f"{st}_10": r["10"] for st, r in results.items()}
+    print(f"[closed-loop] all trials: {json.dumps(se.summary(merged))}; phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -905,6 +1443,7 @@ def main() -> int:
     k2_launches, k3_launches = phase_pergoal(path, obs, out, dev)
     del path, obs, out
     k4, k4_launches = phase_bench(dev)
+    phase_closed_loop(dev)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):

@@ -6,8 +6,9 @@ fields -> IK -> plan) on the port:
   1. fields: per observation, the voxel-deduplicated obstacle cloud and
      the target pixels -> the scene and target-free obstacle cost fields
      on the workspace grid (two K1 launches for the whole batch), packed
-     into one stacked corner table; then the grasp pre-filter: the gripper
-     link's surface points at every grasp's standoff pose against the
+     into one stacked corner table; then the grasp pre-filter: the
+     gripper model's surface points (hand and both fingers) at the open
+     finger offsets, placed at every grasp's standoff pose, against the
      obstacle cloud (one more K1 launch);
   2. IK screen: one single-seed projected-LM batch over every grasp of
      every object, gated at 1 cm / 5 degrees; the warm start interpolates
@@ -31,9 +32,9 @@ slot its own single-goal problem:
     points to the obstacle set, resting contacts at the start left out
     (one K3 launch for both tiers).
 
-The JAX pipeline runs these tiers only for objects whose plan fails its
-replay scorer (planning/evaluate.py, not ported yet), so here both run
-over every object.
+Here both tiers run over every object of the batch, as a throughput
+measure; the closed-loop pipeline (planning/pipeline.py) runs them only
+for objects whose plan fails its replay scorer.
 
 Observations come from the synthetic tabletop scenes on the host
 (`collect_observations`); everything after that runs on one device.
@@ -63,7 +64,12 @@ from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
 from grasptrajopt_tpu_torch.planning.utils import interpolate_waypoints
 from grasptrajopt_tpu_torch.spatial import qangle_deg, r2quat, standoff, transform_points
-from grasptrajopt_tpu_torch.testing import SYNTH_DEFAULT_POSE, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER
+from grasptrajopt_tpu_torch.testing import (
+    SYNTH_DEFAULT_POSE,
+    SYNTH_EVAL_CONFIG,
+    SYNTH_LINK_EE,
+    SYNTH_LINK_GRIPPER,
+)
 
 
 @dataclass(frozen=True)
@@ -197,18 +203,18 @@ def _sync(device: torch.device) -> None:
 
 
 class PerceptionToPlan:
-    """The three phases on one device, for the synthetic arm `synth7`."""
+    """The three phases on one device, for the synthetic arm `synth7` and
+    its gripper model (testing.make_synthetic_gripper)."""
 
-    def __init__(self, robot: GTORobotModel, cfg: SliceConfig):
+    def __init__(self, robot: GTORobotModel, gripper: GTORobotModel, cfg: SliceConfig):
         self.robot = robot
         self.cfg = cfg
         dev, dt = robot.device, robot.dtype
         self.grid_pts = torch.as_tensor(robot.grid.grid_points(np.float64), dtype=dt, device=dev)
         self.qc = torch.as_tensor(SYNTH_DEFAULT_POSE, dtype=dt, device=dev)
         self.link_ee = SYNTH_LINK_EE
-        # the synthetic arm has no separate gripper model: the pre-filter
-        # uses the hand link's surface points, the points the planner matches
-        self.filter_points = robot.gripper_points(SYNTH_LINK_GRIPPER)
+        pts = gripper.compute_fk_surface_points(SYNTH_EVAL_CONFIG["gripper_open_offsets"])
+        self.filter_points = torch.as_tensor(pts, dtype=dt, device=dev)
         self.filter_offset = standoff(cfg.filter_standoff, cfg.axis_standoff, dt, dev)
         self.ik = IKSolver(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, iterations=cfg.ik_iterations)
         self.planner = GTOPlanner(

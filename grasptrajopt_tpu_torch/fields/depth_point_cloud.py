@@ -9,13 +9,18 @@ Port of grasptrajopt_tpu/fields/depth_point_cloud.py:31-163:
                (d - eps)^2 / (2 eps)    0 < d < eps
                0                        d >= eps
   - `build_two_cost_fields`: both fields of a batch of observations, the
-    distance passes each ONE K1 launch over all B clouds.
+    distance passes each ONE K1 launch over all B clouds;
+  - `DepthPointCloud` / `FusedDepthPointCloud` (JAX :166-375): one
+    observation (or the union of several) with signed-distance queries,
+    each `get_sdf` one K1 launch over the masked H*W cloud, as the
+    pipeline's fields, grasp filter and replay scorer use them.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from grasptrajopt_tpu_torch.ops.dedup import voxel_dedup
@@ -170,3 +175,128 @@ def build_two_cost_fields(
         threshold, epsilon,
     )
     return TwoCostFields(f_all, f_obs, obs_pts, obs_mask, tgt_pts, tgt_mask)
+
+
+class DepthPointCloud:
+    """Scene point cloud of one depth image, with signed-distance queries.
+
+    The cloud keeps the static (H*W, 3) shape with a validity mask
+    (0 < depth < threshold, and off the target mask when one is given).
+    float32 by default, as in the JAX package: the fields, the grasp
+    filter and the replay scorer run in float32 whatever the robot's
+    dtype, and K1 takes float32 only. Queries are cast to the cloud's
+    dtype and device; every query returns a tensor there.
+    """
+
+    def __init__(
+        self,
+        depth,
+        intrinsic_matrix,
+        camera_pose,
+        target_mask=None,
+        threshold: float = 1.5,
+        dtype=torch.float32,
+        device="cuda",
+    ):
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        self.depth = tensor(depth)
+        self.height, self.width = self.depth.shape
+        self.intrinsic_matrix = tensor(intrinsic_matrix)
+        self.camera_pose = tensor(camera_pose)
+        self.threshold = threshold
+        valid = (self.depth > 0) & (self.depth < threshold)
+        if target_mask is not None:
+            valid = valid & (torch.as_tensor(np.asarray(target_mask), device=device) == 0)
+        self.points_padded = backproject_depth(
+            self.depth[None], self.intrinsic_matrix, self.camera_pose[None]
+        )[0]
+        self.valid = valid.reshape(-1)
+
+    @property
+    def dtype(self):
+        return self.depth.dtype
+
+    @property
+    def device(self):
+        return self.depth.device
+
+    @property
+    def points(self) -> np.ndarray:
+        """Compacted (N, 3) world points, host numpy."""
+        return self.points_padded[self.valid].cpu().numpy()
+
+    def _queries(self, query_points):
+        return torch.as_tensor(query_points, dtype=self.dtype, device=self.device)
+
+    def is_outside(self, query_points):
+        """(M,) bool: True where the query is observed free space (in
+        front of the measured surface, or outside the viewport)."""
+        q = self._queries(query_points)
+        return camera_outside(self.depth[None], self.intrinsic_matrix, self.camera_pose[None], q)[0]
+
+    def get_sdf(self, query_points):
+        """(M,) signed distances of (M, 3) world points to the cloud:
+        negative where the query is not observed free space. One K1
+        launch on the card."""
+        q = self._queries(query_points)
+        d = torch.sqrt(min_sqdist_d2(q, self.points_padded[None], self.valid[None])[0])
+        return torch.where(self.is_outside(q), d, -d)
+
+    def get_sdf_cost(self, query_points, epsilon: float = 0.02, w_inside: float = 1.0):
+        """The shaped obstacle cost at query points (the planner's field
+        values)."""
+        return sdf_cost_shaping(self.get_sdf(query_points), epsilon, w_inside)
+
+    def build_cost_field(self, grid, epsilon: float = 0.02, w_inside: float = 1.0):
+        """The flat (S,) cost field over a VoxelGrid's points."""
+        return self.get_sdf_cost(grid.grid_points(), epsilon=epsilon, w_inside=w_inside)
+
+    def _with_cloud(self, points_padded, valid):
+        """A copy that shares this view's camera and sign test but queries
+        another cloud."""
+        view = object.__new__(type(self))
+        view.__dict__.update(self.__dict__)
+        view.points_padded, view.valid = points_padded, valid
+        return view
+
+    def downsampled(self, voxel: float, capacity_step: int = 2048):
+        """A query-equivalent view with one cloud point per `voxel`-sized
+        cell (the first in raster order; distance error <= voxel / 2 at
+        worst), padded to a multiple of `capacity_step`. Host numpy, as in
+        the JAX package. Used by the fine-grid shelf field builds."""
+        pts = self.points
+        if voxel and voxel > 0 and pts.shape[0] > 0:
+            cells = np.floor(pts / voxel).astype(np.int64)
+            _, keep = np.unique(cells, axis=0, return_index=True)
+            pts = pts[np.sort(keep)]
+        n = max(int(pts.shape[0]), 1)
+        cap = -(-n // capacity_step) * capacity_step
+        padded = np.zeros((cap, 3), dtype=pts.dtype)
+        padded[:n] = pts[:n]
+        valid = np.arange(cap) < n
+        return self._with_cloud(
+            torch.as_tensor(padded, device=self.device), torch.as_tensor(valid, device=self.device)
+        )
+
+
+class FusedDepthPointCloud(DepthPointCloud):
+    """The union of several views' observations: the points of every
+    view's cloud (one K1 launch over all of them), and a query is outside
+    when ANY view observes it in front of its measured surface."""
+
+    def __init__(self, views):
+        views = list(views)
+        if not views:
+            raise ValueError("FusedDepthPointCloud needs at least one view")
+        self.__dict__.update(views[0].__dict__)
+        self.views = views
+        self.points_padded = torch.cat([v.points_padded for v in views])
+        self.valid = torch.cat([v.valid for v in views])
+
+    def is_outside(self, query_points):
+        out = self.views[0].is_outside(query_points)
+        for v in self.views[1:]:
+            out = out | v.is_outside(query_points)
+        return out

@@ -1,8 +1,10 @@
 """Axis-aligned voxel grid for SDF cost fields.
 
 Port of grasptrajopt_tpu/fields/voxel_grid.py (`VoxelGrid` only). Grid
-construction is host numpy and identical to the JAX package; `pack` and
-the lookups act on torch tensors.
+construction is host numpy and identical to the JAX package: the
+workspace box (`from_workspace`) or the bounds of a scene cloud
+(`from_points`), each padded by `margin`; `pack` and the lookups act on
+torch tensors.
 """
 
 from __future__ import annotations
@@ -40,6 +42,24 @@ class VoxelGrid:
         """xlim=[0, arm_len], ylim=[-arm_len, arm_len],
         zlim=[0, arm_height + arm_len], each padded by `margin`."""
         limits = ((0.0, arm_len), (-arm_len, arm_len), (0.0, arm_height + arm_len))
+        return cls._from_limits(limits, margin, resolution)
+
+    @classmethod
+    def from_points(
+        cls,
+        points: np.ndarray,
+        margin: float = DEFAULT_MARGIN,
+        resolution: float = DEFAULT_RESOLUTION,
+    ) -> "VoxelGrid":
+        """The bounds of a scene cloud (N, 3), padded by `margin`."""
+        points = np.asarray(points)
+        lo, hi = points.min(axis=0), points.max(axis=0)
+        return cls._from_limits(tuple(zip(lo, hi)), margin, resolution)
+
+    @classmethod
+    def _from_limits(cls, limits, margin, resolution) -> "VoxelGrid":
+        """Axis sizes with np.arange(lo - margin, hi + margin, res)
+        semantics, so shapes match the JAX package exactly."""
         axes = [np.arange(lo - margin, hi + margin, resolution) for lo, hi in limits]
         origin = (float(axes[0][0]), float(axes[1][0]), float(axes[2][0]))
         shape = (len(axes[0]), len(axes[1]), len(axes[2]))

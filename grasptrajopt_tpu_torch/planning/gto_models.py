@@ -4,7 +4,9 @@ Port of grasptrajopt_tpu/planning/gto_models.py (the field-mode parts):
 surface points sampled per collision link on the host (numpy, seeded by
 crc32 of the link name, so both packages get the same points bit for
 bit), visual origins folded into link-frame points, `fk_surface_points`,
-`surface_points_soa` with a point stride, and `setup_workspace_field`.
+`surface_points_soa` with a point stride, `compute_fk_surface_points`
+(host numpy points, the grasp pre-filter's gripper model),
+`get_standoff_pose`, and `setup_workspace_field` / `setup_points_field`.
 """
 
 from __future__ import annotations
@@ -157,6 +159,26 @@ class GTORobotModel(RobotModel):
             out.append(w)
         return tuple(out)
 
+    def compute_fk_surface_points(self, q):
+        """All surface points in the world frame at one configuration q
+        (ndof,): host numpy (P, 3). (The JAX method also returns the
+        normals, which no caller reads.)"""
+        frames = self.fk_all(torch.as_tensor(q, dtype=self.dtype, device=self.device))
+        pts = [transform_points(frames[..., fidx, :, :], p)
+               for fidx, p in zip(self._surface_frame_idx, self._link_points_local)]
+        return torch.cat(pts, dim=-2).cpu().numpy()
+
+    @staticmethod
+    def get_standoff_pose(offset: float, axis: str) -> np.ndarray:
+        """float32 (4, 4): a translation by `offset` along the grasp
+        frame's `axis` ('x', 'y' or 'z')."""
+        index = {"x": 0, "y": 1, "z": 2}.get(axis)
+        if index is None:
+            raise ValueError(f"unknown standoff axis {axis!r}")
+        pose = np.eye(4, dtype=np.float32)
+        pose[index, 3] = offset
+        return pose
+
     def gripper_points(self, link: str) -> torch.Tensor:
         """The raw surface points of one link (the planner's goal-matching
         point set)."""
@@ -167,5 +189,13 @@ class GTORobotModel(RobotModel):
     def setup_workspace_field(self, arm_len: float, arm_height: float) -> VoxelGrid:
         self.grid = VoxelGrid.from_workspace(
             arm_len, arm_height, margin=self.field_margin, resolution=self.grid_resolution
+        )
+        return self.grid
+
+    def setup_points_field(self, points) -> VoxelGrid:
+        """The grid over a scene cloud's bounds (N, 3), padded by the field
+        margin."""
+        self.grid = VoxelGrid.from_points(
+            np.asarray(points), margin=self.field_margin, resolution=self.grid_resolution
         )
         return self.grid

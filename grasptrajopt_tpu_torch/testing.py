@@ -2,7 +2,10 @@
 
 Port of grasptrajopt_tpu/testing.py: the 7-DoF synthetic arm `synth7`
 built from an embedded URDF with primitive geometry (10 collision links),
-its constants, and a reachable synthetic grasp pose.
+its constants, and a reachable synthetic grasp pose. Also the arm's
+gripper as a model of its own (`SYNTH_GRIPPER_URDF`: the hand and both
+fingers, rooted at the hand, as the pipeline's grasp pre-filter needs it)
+and `SYNTH_EVAL_CONFIG`, the robot config the closed-loop harness reads.
 """
 
 from __future__ import annotations
@@ -74,6 +77,25 @@ SYNTH_ARM_URDF = """
 </robot>
 """
 
+# the arm's hand, fingers and finger joints, with the hand as the root
+SYNTH_GRIPPER_URDF = """
+<robot name="synth7_gripper">
+  <link name="hand"><visual><geometry><box size="0.08 0.1 0.05"/></geometry></visual></link>
+  <link name="finger_l"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
+  <link name="finger_r"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
+  <joint name="finger_joint_l" type="prismatic">
+    <parent link="hand"/><child link="finger_l"/>
+    <origin xyz="0 0.03 0.05" rpy="0 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="0" upper="0.04" velocity="0.2"/>
+  </joint>
+  <joint name="finger_joint_r" type="prismatic">
+    <parent link="hand"/><child link="finger_r"/>
+    <origin xyz="0 -0.03 0.05" rpy="0 0 0"/><axis xyz="0 -1 0"/>
+    <limit lower="0" upper="0.04" velocity="0.2"/>
+  </joint>
+</robot>
+"""
+
 SYNTH_COLLISION_LINKS = [
     "base_link", "l1", "l2", "l3", "l4", "l5", "l6", "hand", "finger_l", "finger_r",
 ]
@@ -82,20 +104,45 @@ SYNTH_LINK_EE = "hand"
 SYNTH_LINK_GRIPPER = "hand"
 SYNTH_DEFAULT_POSE = np.array([0.0, 0.6, 0.0, -1.4, 0.0, 1.8, 0.0, 0.04, 0.04])
 
+# the keys the closed-loop harness (synthetic_eval.evaluate_scenes) reads
+# from a robot config; robot_name picks the scene layout and grasp
+# convention of the synthetic scenes (the panda's, which the e2e slice uses)
+SYNTH_EVAL_CONFIG = {
+    "robot_name": "panda",
+    "link_ee": SYNTH_LINK_EE,
+    "link_gripper": SYNTH_LINK_GRIPPER,
+    "axis_standoff": "z",
+    "gripper_open_offsets": (0.04, 0.04),
+    "default_pose": SYNTH_DEFAULT_POSE.tolist(),
+    "depth_threshold": 1.5,
+}
+
 
 def make_synthetic_gto_robot(
-    device="cuda", dtype=torch.float32, points_per_link: int = 100
+    device="cuda", dtype=torch.float32, points_per_link: int = 100, grid_resolution: float = 0.05
 ) -> GTORobotModel:
     robot = GTORobotModel.from_urdf_string(
         SYNTH_ARM_URDF,
         param_joints=SYNTH_PARAM_JOINTS,
         collision_link_names=SYNTH_COLLISION_LINKS,
         points_per_link=points_per_link,
+        grid_resolution=grid_resolution,
         device=device,
         dtype=dtype,
     )
     robot.setup_workspace_field(arm_len=1.1, arm_height=0.2)
     return robot
+
+
+def make_synthetic_gripper(
+    device="cuda", dtype=torch.float32, points_per_link: int = 100
+) -> GTORobotModel:
+    """The arm's gripper alone (both finger joints are its joints). Its
+    surface points equal the arm's for the same links: sampling is seeded
+    by the link's name."""
+    return GTORobotModel.from_urdf_string(
+        SYNTH_GRIPPER_URDF, points_per_link=points_per_link, device=device, dtype=dtype
+    )
 
 
 def make_synthetic_goal(seed: int = 0) -> np.ndarray:

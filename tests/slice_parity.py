@@ -12,6 +12,7 @@ with the coarse 2+1 schedule and final_trust.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 
@@ -23,7 +24,8 @@ from grasptrajopt_tpu.spatial import transform_points as jax_tp
 from grasptrajopt_tpu.testing import SYNTH_DEFAULT_POSE
 from grasptrajopt_tpu_torch.e2e import PerceptionToPlan, SliceConfig, collect_observations
 from grasptrajopt_tpu_torch.ops import nn as pnn
-from torch_parity import make_jax_synth_robot, np_, port_robot
+from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG, make_synthetic_gripper
+from torch_parity import make_jax_synth_gripper, make_jax_synth_robot, np_, port_robot
 
 CFG = SliceConfig(
     batch=2, goal_capacity=8, width=48, height=48, scenes=(36,),
@@ -37,7 +39,8 @@ def run_port():
     jr = make_jax_synth_robot(points_per_link=10, grid_resolution=0.1)
     obs = collect_observations(CFG)
     before = pnn.min_d2_launches
-    out = PerceptionToPlan(port_robot(jr), CFG).run(obs)
+    gripper = make_synthetic_gripper(device="cpu", dtype=torch.float64, points_per_link=10)
+    out = PerceptionToPlan(port_robot(jr), gripper, CFG).run(obs)
     assert pnn.min_d2_launches == before  # CPU tensors take the plain K1
     port = {k: np_(out[k]) for k in ("keep", "found", "goal_mask", "X0", "Q", "cost")}
     port["f_all"], port["f_obs"] = np_(out["fields"].f_all), np_(out["fields"].f_obs)
@@ -57,7 +60,12 @@ def jax_upstream(jr, obs):
     B, G = obs.grasps_world.shape[:2]
     K = jnp.asarray(obs.K, jnp.float64)
     grid_pts = jnp.asarray(jr.grid.grid_points(np.float64))
-    hand = jnp.asarray(jr.surface_pc_map["hand"].points)
+    # the JAX gripper model's points at the open finger offsets
+    # (bench_e2e.py's pre-filter), built from the same URDF string
+    gripper_pts, _ = make_jax_synth_gripper(10).compute_fk_surface_points(
+        np.asarray(SYNTH_EVAL_CONFIG["gripper_open_offsets"])
+    )
+    gripper_pts = jnp.asarray(gripper_pts)
     filter_off = np.eye(4)
     filter_off[2, 3] = cfg.filter_standoff
     f_all, f_obs, keep = [], [], []
@@ -70,7 +78,7 @@ def jax_upstream(jr, obs):
             epsilon=cfg.field_epsilon, dedup_voxel=cfg.dedup_voxel,
             capacity_obstacle=cfg.capacity_obstacle, capacity_target=cfg.capacity_target,
         )
-        gp = jax_tp(jnp.asarray(obs.grasps_world[b]) @ filter_off, hand)
+        gp = jax_tp(jnp.asarray(obs.grasps_world[b]) @ filter_off, gripper_pts)
         d_obs_img = jnp.where(mask, cfg.depth_threshold, depth)
         sdf = jdpc.signed_distance_to_cloud(gp.reshape(-1, 3), op, om, d_obs_img, K, pose)
         keep.append(np.asarray((sdf.reshape(G, -1) < 0).mean(axis=1) <= 0.01))

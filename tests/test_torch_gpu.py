@@ -45,7 +45,7 @@ def _inputs(dev, B, M, N, per_cloud=False, seed=0):
         (16, 95_760, 2_048, False),  # slice widths: target pass
         (3, 1_000, 1_000, False),  # ragged M and N: not multiples of the tiles
         (2, 1, 1, False),
-        (4, 3_200, 12_288, True),  # the grasp pre-filter's per-object queries
+        (4, 9_600, 12_288, True),  # the grasp pre-filter's per-object queries (32 grasps x 300 points)
     ],
 )
 def test_kernel_matches_plain(cuda, B, M, N, per_cloud):
@@ -284,3 +284,118 @@ def test_field_lookup_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         interp.field_lookup_packed_soa_grad(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES,
                                             row_offset=torch.zeros((2, 5, 1), device=cuda))
     assert interp.field_lookup_launches == before
+
+
+# -- the closed-loop pipeline's clouds, replay scorer and one trial ----------
+
+
+def _observation(width=160):
+    """Tabletop scene 10 at width x width: (depth, target mask of the
+    nearest object, camera pose, K, env, object name)."""
+    from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
+
+    env = SyntheticSceneEnv(robot_name="panda", scene_type="tabletop", n_objects=5, width=width, height=width)
+    meta = env.setup_scene(10)
+    env.reset_scene()
+    name = meta["nearest_first"].split(",")[0]
+    depth, ids, cam_pose, K = env.get_observation()
+    return depth, ids == env._placed(name).uid, cam_pose, K, env, name
+
+
+def _cloud_plain_sdf(cloud, q):
+    """The signed distances of the cloud's queries from K1's plain version."""
+    rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
+    d = torch.sqrt(nn.min_d2_batched_reference(q.contiguous(), rT)[0])
+    return torch.where(cloud.is_outside(q), d, -d)
+
+
+def test_depth_cloud_sdf_and_cost_field_match_plain(cuda):
+    """DepthPointCloud.get_sdf (obstacle view: the target masked out) and
+    build_cost_field: one K1 launch each, squared distances within TOL of
+    the plain version's and identical signs; the cost field within TOL."""
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud, sdf_cost_shaping
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    depth, mask, pose, K, _, _ = _observation()
+    d_obs = depth.copy()
+    d_obs[mask] = 1.5
+    cloud = DepthPointCloud(d_obs, K, pose, mask, device=cuda)
+    g = torch.Generator().manual_seed(7)
+    q = (torch.rand((50_000, 3), generator=g) * torch.tensor([1.2, 1.6, 1.2]) + torch.tensor([0.0, -0.8, 0.0])).to(cuda)
+    before = nn.min_d2_launches
+    got = cloud.get_sdf(q)
+    torch.cuda.synchronize()
+    assert nn.min_d2_launches == before + 1
+    want = _cloud_plain_sdf(cloud, q)
+    assert float((got.double() ** 2 - want.double() ** 2).abs().max()) <= TOL
+    assert torch.equal(got < 0, want < 0) and bool((got < 0).any())
+
+    grid = make_synthetic_gto_robot(device=cuda, points_per_link=1).grid
+    field = cloud.build_cost_field(grid)
+    torch.cuda.synchronize()
+    assert nn.min_d2_launches == before + 2 and field.shape == (grid.size,)
+    gp = torch.as_tensor(grid.grid_points(), device=cuda)
+    assert float((field - sdf_cost_shaping(_cloud_plain_sdf(cloud, gp))).abs().max()) <= TOL
+
+
+def test_score_plans_pergoal_cuda_matches_cpu(cuda):
+    """The replay scorer on the card (one K1 launch for the batch) against
+    the same float32 replay on the CPU: collision and reach verdicts
+    identical, inside counts within one point, errors within 1e-4."""
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+    from grasptrajopt_tpu_torch.planning.evaluate import score_plans_pergoal
+    from grasptrajopt_tpu_torch.testing import SYNTH_DEFAULT_POSE, make_synthetic_gto_robot
+
+    depth, mask, pose, K, env, name = _observation()
+    d_obs = depth.copy()
+    d_obs[mask] = 1.5
+    RT = env.grasps_world(name)[:6].copy()
+    RT[:, :3, 3] -= env.base_position
+    # plans that swing the shoulder forward by 0.2-1.2 rad: some reach
+    # into the table
+    T = 50
+    s = np.linspace(0.0, 1.0, T)
+    plans = np.tile(SYNTH_DEFAULT_POSE[None, :, None], (6, 1, T))
+    plans[:, 1] += np.linspace(0.2, 1.2, 6)[:, None] * s
+    plans[:, 3] += 0.5 * s
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        robot = make_synthetic_gto_robot(device=dev, points_per_link=100)
+        cloud = DepthPointCloud(d_obs, K, pose, mask, device=dev)
+        before = nn.min_d2_launches
+        out[dev.type] = score_plans_pergoal(robot, "hand", plans, RT, cloud, env.base_position)
+        if dev.type == "cuda":
+            assert nn.min_d2_launches == before + 1
+    a, b = out["cuda"], out["cpu"]
+    assert any(r["collision"] for r in b) and not all(r["collision"] for r in b)
+    for x, y in zip(a, b):
+        assert (x["collision"], x["reached"], x["reward"]) == (y["collision"], y["reached"], y["reward"])
+        assert abs(x["max_inside_points"] - y["max_inside_points"]) <= 1
+        assert abs(x["err_pos"] - y["err_pos"]) <= 1e-4 and abs(x["err_rot"] - y["err_rot"]) <= 1e-2
+
+
+def test_synth7_tabletop_trial_on_the_card(cuda, tmp_path):
+    """One closed-loop trial (tabletop scene 10, its nearest object) at
+    full width through the harness, on the models build_models gives with
+    its defaults: a finite plan within the limits,
+    pinned at the start for its first two steps, scored."""
+    from grasptrajopt_tpu_torch import synthetic_eval as se
+    from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG
+
+    robot, gripper, cfg = se.build_models("synth7")  # the defaults: the card, float32
+    assert robot.device.type == "cuda" and robot.dtype == gripper.dtype == torch.float32
+    res = se.evaluate_scenes(
+        robot, gripper, cfg, scene_ids=[10], n_objects=1, orderings=["nearest_first"],
+        iterations=3, single_pass=True, coarse_iterations=2, final_trust=True, verbose=False,
+        checkpoint_path=str(tmp_path / "result.json"),
+    )
+    (rec,) = res["10"]["nearest_first"].values()
+    assert rec["stage"] == "ok" and "collision" in rec
+    plan = np.asarray(rec["plan"])  # (ndof, T)
+    assert plan.shape == (robot.ndof, 50) and np.isfinite(plan).all()
+    qc = np.asarray(SYNTH_EVAL_CONFIG["default_pose"], np.float32)
+    np.testing.assert_array_equal(plan[:, :2], np.stack([qc, qc], axis=1))
+    opt = robot.optimized_joint_indexes
+    assert (plan[opt] >= robot.lower_optimized_joint_limits[:, None] - 1e-6).all()
+    assert (plan[opt] <= robot.upper_optimized_joint_limits[:, None] + 1e-6).all()
+    assert se.summary(res)["trials"] == 1

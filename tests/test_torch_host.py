@@ -89,15 +89,32 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU (the CPU tests pass device="cpu")."""
     import inspect
 
-    from grasptrajopt_tpu_torch import convert
+    from grasptrajopt_tpu_torch import convert, synthetic_eval
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
     from grasptrajopt_tpu_torch.models.robot import RobotModel
     from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gripper
 
     for fn in (
         RobotModel.__init__, GTORobotModel.__init__, GTORobotModel.from_urdf_string, port_synth,
         convert.robot_from_numpy, convert.scene_sets_from_numpy, convert.params_from_numpy,
+        DepthPointCloud.__init__, make_synthetic_gripper, synthetic_eval.build_models,
     ):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert synthetic_eval.make_args([]).device == "cuda"
+
+
+def test_build_models_picks_the_dtype_of_its_device():
+    """synthetic_eval.build_models with no dtype: float64 on the CPU (and
+    float32 on the card, where K4 takes float32 only: the `gpu` trial
+    test builds from the defaults)."""
+    from grasptrajopt_tpu_torch.synthetic_eval import build_models
+    from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG
+
+    robot, gripper, cfg = build_models("synth7", grid_resolution=0.1, device="cpu")
+    assert robot.dtype == gripper.dtype == torch.float64
+    assert robot.device.type == gripper.device.type == "cpu"
+    assert robot.grid.resolution == 0.1 and cfg == SYNTH_EVAL_CONFIG
 
 
 def test_port_imports_without_jax():
@@ -116,3 +133,26 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 30
+
+
+def test_synthetic_gripper_matches_the_arm_and_jax():
+    """The gripper model samples the arm's hand and finger points (seeded
+    by link name); its surface points at the open offsets equal the JAX
+    package's model of the same URDF string, and so does the standoff
+    pose."""
+    from grasptrajopt_tpu.planning.gto_models import GTORobotModel as JaxModel
+    from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG, SYNTH_GRIPPER_URDF, make_synthetic_gripper
+
+    import jax.numpy as jnp
+
+    gripper = make_synthetic_gripper(device="cpu", dtype=torch.float64, points_per_link=10)
+    arm = port_synth(device="cpu", dtype=torch.float64, points_per_link=10)
+    assert list(gripper.surface_points) == ["hand", "finger_l", "finger_r"]
+    for name, pts in gripper.surface_points.items():
+        np.testing.assert_array_equal(pts, arm.surface_points[name])
+    jg = JaxModel(model_dir="", urdf_string=SYNTH_GRIPPER_URDF, points_per_link=10, dtype=jnp.float64)
+    offsets = np.asarray(SYNTH_EVAL_CONFIG["gripper_open_offsets"])
+    got = gripper.compute_fk_surface_points(offsets)
+    assert got.shape == (30, 3)
+    np.testing.assert_allclose(got, jg.compute_fk_surface_points(offsets)[0], atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(gripper.get_standoff_pose(-0.01, "z"), jg.get_standoff_pose(-0.01, "z"))

@@ -21,6 +21,7 @@ from grasptrajopt_tpu.fields.scene_points import scene_point_sets_from_depth as 
 from grasptrajopt_tpu.planning.gto_planner import GTOPlanner as JaxPlanner
 from grasptrajopt_tpu_torch.e2e import PerceptionToPlan, SliceConfig, collect_observations
 from grasptrajopt_tpu_torch.ops import nn
+from grasptrajopt_tpu_torch.testing import make_synthetic_gripper
 from torch_parity import make_jax_synth_robot, np_, port_robot
 
 CFG = SliceConfig(
@@ -33,7 +34,8 @@ CFG = SliceConfig(
 def run():
     jr = make_jax_synth_robot(points_per_link=10, grid_resolution=0.1)
     obs = collect_observations(CFG)
-    path = PerceptionToPlan(port_robot(jr), CFG)
+    gripper = make_synthetic_gripper(device="cpu", dtype=torch.float64, points_per_link=10)
+    path = PerceptionToPlan(port_robot(jr), gripper, CFG)
     out = path.run(obs)
     x = out["inputs"]
     x["tf_goal"] = x["tf_goal"].float().double()  # as the JAX call stores them

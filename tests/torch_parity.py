@@ -16,6 +16,7 @@ from grasptrajopt_tpu.testing import (
     SYNTH_PARAM_JOINTS,
 )
 from grasptrajopt_tpu_torch.convert import robot_from_numpy
+from grasptrajopt_tpu_torch.testing import SYNTH_GRIPPER_URDF
 
 
 def make_jax_synth_robot(points_per_link: int = 10, grid_resolution: float = 0.05):
@@ -33,6 +34,14 @@ def make_jax_synth_robot(points_per_link: int = 10, grid_resolution: float = 0.0
     )
     robot.setup_workspace_field(arm_len=1.1, arm_height=0.2)
     return robot
+
+
+def make_jax_synth_gripper(points_per_link: int = 10):
+    """The JAX package's model of the synthetic arm's gripper, float64,
+    from the port's URDF string (the hand and both fingers)."""
+    return GTORobotModel(
+        model_dir="", urdf_string=SYNTH_GRIPPER_URDF, points_per_link=points_per_link, dtype=jnp.float64
+    )
 
 
 def jax_robot_state(jr) -> dict:
@@ -72,3 +81,122 @@ def t64(a):
 
 def np_(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def jax_ik_restarts(jr, B: int, num_seeds: int, seed: int = 0) -> np.ndarray:
+    """(B, num_seeds - 1, n_opt): the restarts the JAX IKSolver's batched
+    multistart draws (one key per goal from jax.random.split)."""
+    import jax
+
+    lo = jnp.asarray(jr.lower_optimized_joint_limits, jnp.float64)
+    hi = jnp.asarray(jr.upper_optimized_joint_limits, jnp.float64)
+    lo_s, hi_s = jnp.clip(lo, -3.2, 3.2), jnp.clip(hi, -3.2, 3.2)
+    keys = jax.random.split(jax.random.PRNGKey(seed), B)
+    return np.stack([
+        np.asarray(lo_s + jax.random.uniform(k, (num_seeds - 1, lo.shape[0]), dtype=jnp.float64) * (hi_s - lo_s))
+        for k in keys
+    ])
+
+
+def use_jax_restarts(ik_solver, jr):
+    """Make the port's IK solver draw its multistart restarts as the JAX
+    package does (the port's own are a torch.Generator's)."""
+    solve = ik_solver.solve_ik_batch
+
+    def solve_with_jax_restarts(q_0, RTs, multistart=False, seed=0, restarts=None):
+        if multistart and restarts is None:
+            restarts = torch.as_tensor(jax_ik_restarts(jr, RTs.shape[0], ik_solver.num_seeds, seed))
+        return solve(q_0, RTs, multistart, seed, restarts)
+
+    ik_solver.solve_ik_batch = solve_with_jax_restarts
+
+
+def observation(scene_type: str = "tabletop", size: int = 64, views: int = 1, scene_id: int = 10, index: int = 0):
+    """One rendered observation of a synthetic scene's `index`-th object
+    (nearest first on the tabletop, the random order on the shelf): a dict
+    of depth, target mask and camera pose (lists when views > 1), K, the
+    object's world grasps and the robot base position."""
+    from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
+
+    env = SyntheticSceneEnv(robot_name="panda", scene_type=scene_type, n_objects=5, width=size, height=size)
+    meta = env.setup_scene(scene_id)
+    env.reset_scene()
+    name = meta["nearest_first" if scene_type == "tabletop" else "random"].split(",")[index]
+    uid = env._placed(name).uid
+    depths, masks, poses = [], [], []
+    for cp in env.camera_poses(views):
+        d, ids, _, K = env.get_observation(cp)
+        depths.append(d)
+        masks.append(ids == uid)
+        poses.append(cp)
+    one = (lambda a: a) if views > 1 else (lambda a: a[0])
+    return {
+        "depth": one(depths), "target_mask": one(masks), "cam_pose": one(poses), "K": K,
+        "grasps_world": env.grasps_world(name), "base_position": np.asarray(env.base_position),
+        "name": name,
+    }
+
+
+def run_escalation_tier(tier: str, monkeypatch, T: int = 12, size: int = 48, n_goals: int = 3):
+    """One escalation tier of GraspPipeline (`exact`: points mode; `deep`:
+    the deeper field re-solve) in both packages, with the arguments
+    plan_object gives it, on a two-view shelf observation (scene 10, the
+    random order's first object, 10 cm workspace grid): the synthetic arm
+    and its gripper at 10 points per link in float64, the shelf's knobs
+    (standoff -0.2 m, planning fields from the first view over a 1 cm
+    dedup), the bench's planner flavour at horizon T. Each package builds
+    its own fields, obstacle clouds and tier planner (its module's
+    GTOPlanner is patched to horizon T); both get the same IK solutions
+    (the port's screen). Returns a dict per package ("port", "jax") of
+    plans (n, ndof, T), costs (n,) and the replay scorer's verdicts on the
+    plans against that package's fused obstacle cloud."""
+    import functools
+
+    import grasptrajopt_tpu.planning.pipeline as jax_pipeline
+    import grasptrajopt_tpu_torch.planning.pipeline as port_pipeline
+    from grasptrajopt_tpu.planning import evaluate as jax_evaluate
+    from grasptrajopt_tpu.testing import SYNTH_DEFAULT_POSE
+    from grasptrajopt_tpu_torch.planning import evaluate as port_evaluate
+    from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG, make_synthetic_gripper
+
+    for module in (jax_pipeline, port_pipeline):
+        monkeypatch.setattr(module, "GTOPlanner", functools.partial(module.GTOPlanner, T=T))
+    qc = SYNTH_DEFAULT_POSE.astype(np.float64)
+    knobs = dict(
+        axis_standoff="z", gripper_open_offsets=SYNTH_EVAL_CONFIG["gripper_open_offsets"],
+        standoff_distance=-0.2, standoff_offset=-4, goal_capacity=4, ik_capacity=4, ik_iterations=20,
+        planner_iterations=3, planner_single_pass=True, planner_coarse_iterations=2, planner_final_trust=True,
+        field_downsample=0.01, plan_views=1,
+    )
+    jr = make_jax_synth_robot(points_per_link=10, grid_resolution=0.1)
+    pr = port_robot(jr)
+    pipelines = {
+        "jax": jax_pipeline.GraspPipeline(jr, make_jax_synth_gripper(10), "hand", "hand", grid=jr.grid, **knobs),
+        "port": port_pipeline.GraspPipeline(
+            pr, make_synthetic_gripper(device="cpu", dtype=torch.float64, points_per_link=10), "hand", "hand",
+            grid=pr.grid, **knobs,
+        ),
+    }
+    obs = observation("shelf", size=size, views=2)
+    view_args = (obs["depth"], obs["K"], obs["cam_pose"], obs["target_mask"])
+    RT_base = obs["grasps_world"][:n_goals].copy()
+    RT_base[:, :3, 3] -= obs["base_position"]
+    q, found = pipelines["port"].screen_ik(qc, RT_base)
+    assert found.any()
+    RT_base, q_solutions = RT_base[found], q[found].T
+    out = {}
+    for name, p in pipelines.items():
+        _, cloud, sdf_all, sdf_obs = p.build_fields(*view_args)
+        sdf_all, sdf_obs = np_(sdf_all), np_(sdf_obs)
+        if tier == "exact":
+            Q, cost = p._plan_pergoal_exact(qc, RT_base, obs["base_position"], q_solutions, 4, *view_args)
+        else:
+            Q, cost = p._plan_pergoal_deep(qc, RT_base, sdf_all, sdf_obs, obs["base_position"], q_solutions, 4)
+        Q, cost = np.asarray(Q), np.asarray(cost)
+        scorer = port_evaluate if name == "port" else jax_evaluate
+        scores = scorer.score_plans_pergoal(
+            p.robot, "hand", Q, RT_base, cloud, obs["base_position"],
+            pos_tol=p.rescue_pos_tol, rot_tol_deg=p.rescue_rot_tol_deg,
+        )
+        out[name] = {"plans": Q, "costs": cost, "scores": scores}
+    return out
