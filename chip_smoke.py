@@ -18,10 +18,19 @@ result line:
      tensors, at the perception-to-plan path's widths (B = 16 clouds,
      M = 95,760 workspace grid points, N = 12,288 obstacle and 2,048 target
      points, and the pre-filter's 9,600 per-object queries: 32 grasps x
-     the gripper model's 300 points) and at ragged
-     sizes with an all-invalid cloud; fails above 1e-5 m^2 (squared
-     distances here are below ~10 m^2, and fused multiply-adds move a
-     value by a few float32 ulp, ~1e-6); median CUDA-event times of both;
+     the gripper model's 300 points), at the closed-loop pipeline's B = 1
+     launches (the 95,760-cell field build, one plan's 50,000-point replay
+     and the grasp filter's 9,600 points against a 25,600-pixel cloud, a
+     replay against two fused views, the shelf's 766,080-cell field build
+     against 14,336 points) and at ragged sizes with all-invalid clouds;
+     fails above 1e-5 m^2 (squared distances here are below ~10 m^2, and
+     fused multiply-adds move a value by a few float32 ulp, ~1e-6), and
+     where a forced cluster size S = 1, 2, 4 or 8 differs by one bit from
+     the launch plan's output at a B = 1 shape; median CUDA-event times of
+     lone calls of both (with the wrapper's host time beside the kernel's),
+     and at the B = 1 shapes the device time a call with the launches
+     queued, the plan and S = 1 in turns; each against its bound at 7 FP32
+     instructions a pair;
   4. K2 / K3 vs plain: the nearest-point kernel against its plain-torch
      version on the same CUDA tensors, at the exact per-goal tier's passes
      (C = 16 objects, M = 1.6 M body points each, N = 4,096 obstacle and
@@ -113,8 +122,8 @@ result line:
      and the last shelf trial's B = 1 launches (the two fields, 95,760 x
      25,600 and 766,080 x the downsampled first view; the filter; each
      replay, on the shelf over both views fused) against plain at
-     FIELD_TOL with identical inside verdicts, and timed at the tabletop's
-     field and one-plan replay shapes against its bound; the exact tier on
+     FIELD_TOL with identical inside verdicts, and timed at every distinct
+     one of those launch shapes against its bound; the exact tier on
      the last shelf trial's observation, goals and IK solutions through
      the pipeline's own tier method (the gates ask for it only after a
      colliding rescue): K2 = 26 launches and no other kernel, its plans
@@ -146,6 +155,9 @@ KERNEL_SOURCES = ("min_d2", "nearest", "field_lookup")
 # flops, issues once)
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 3.35e13
+# the least K1's function needs a (query, point) pair: three subtracts,
+# three multiply(-add)s (the penalty the first one's addend) and the min
+K1_INSTR_PER_PAIR = 7
 
 
 def bound_ms(nbytes: float, instructions: float):
@@ -234,10 +246,19 @@ def phase_build():
             print(f"[build]   {line}")
 
 
+def k1_bound(B, M, N, q_numel):
+    """(ms, by) of one K1 launch: each input read once (queries, the
+    (B, N, 4) rows), the (B, M) output written once, and K1_INSTR_PER_PAIR
+    FP32 instructions for each of the B x M x N pairs."""
+    return bound_ms(4 * (q_numel + 4 * B * N + B * M), K1_INSTR_PER_PAIR * B * M * N)
+
+
 def phase_kernel_vs_plain(grid_pts, dev):
     """K1 against the plain version; returns (max |d2 err|, kernel ms,
     plain ms, bound ms, bound_by) where the times are the sums over the
-    slice's three launch shapes."""
+    slice's three launch shapes. At the pipeline's B = 1 shapes also every
+    forced cluster size S bit for bit against the chosen plan, and the
+    plan's device time against S = 1's in turns (the split's effect)."""
     import numpy as np
     import torch
 
@@ -249,56 +270,100 @@ def phase_kernel_vs_plain(grid_pts, dev):
     def clouds(B, N, valid=0.8):
         ref = torch.as_tensor(rng.uniform(lo, hi, size=(B, N, 3)), dtype=torch.float32, device=dev)
         mask = torch.as_tensor(rng.uniform(size=(B, N)) < valid, device=dev)
-        return nn._pack_refT(ref, mask)
+        return nn._pack_ref4(ref, mask)
+
+    def points(M, *lead):
+        return torch.as_tensor(rng.uniform(lo, hi, size=lead + (M, 3)), dtype=torch.float32, device=dev)
 
     grid = torch.as_tensor(grid_pts, dtype=torch.float32, device=dev)
     # the pre-filter's queries: 32 grasps x the gripper model's 300 points
-    per_object = torch.as_tensor(
-        rng.uniform(lo, hi, size=(16, 9_600, 3)), dtype=torch.float32, device=dev
-    )
-    cases = [  # (name, queries, packed clouds, part of the slice)
-        ("obstacle pass B=16 M=95760 N=12288", grid, clouds(16, 12_288), True),
-        ("target pass B=16 M=95760 N=2048", grid, clouds(16, 2_048), True),
-        ("pre-filter B=16 M=9600/cloud N=12288", per_object, clouds(16, 12_288), True),
-        ("ragged B=3 M=1000 N=1000", grid[:1_000], clouds(3, 1_000), False),
-        ("ragged B=5 M=1025 N=2049", grid[:1_025], clouds(5, 2_049), False),
-        ("ragged B=2 M=1 N=1", grid[:1], clouds(2, 1, valid=1.0), False),
+    per_object = points(9_600, 16)
+    cases = [  # (name, queries, packed clouds, "slice" / "B=1" / None)
+        ("obstacle pass B=16 M=95760 N=12288", grid, clouds(16, 12_288), "slice"),
+        ("target pass B=16 M=95760 N=2048", grid, clouds(16, 2_048), "slice"),
+        ("pre-filter B=16 M=9600/cloud N=12288", per_object, clouds(16, 12_288), "slice"),
+        # the closed-loop pipeline's launches: one cloud of H*W = 25,600
+        # pixels (two fused views: 51,200), the grid, 50,000 body points a
+        # replayed plan, 9,600 gripper points, the shelf's 766,080-cell grid
+        # against the downsampled view
+        ("tabletop field build B=1 M=95760 N=25600", grid, clouds(1, 25_600), "B=1"),
+        ("replay of one plan B=1 M=50000 N=25600", points(50_000), clouds(1, 25_600), "B=1"),
+        ("shelf replay, two fused views B=1 M=50000 N=51200", points(50_000), clouds(1, 51_200), "B=1"),
+        ("grasp filter B=1 M=9600 N=25600", points(9_600), clouds(1, 25_600), "B=1"),
+        ("shelf field build B=1 M=766080 N=14336", points(766_080), clouds(1, 14_336), "B=1"),
+        ("ragged B=3 M=1000 N=1000", grid[:1_000], clouds(3, 1_000), None),
+        ("ragged B=5 M=1025 N=2049", grid[:1_025], clouds(5, 2_049), None),
+        ("ragged N B=1 M=20001 N=12365 (not a multiple of 8 x 512)", grid[:20_001], clouds(1, 12_365), "B=1"),
+        ("ragged B=2 M=1 N=1", grid[:1], clouds(2, 1, valid=1.0), None),
     ]
     invalid = clouds(3, 2_100)
-    invalid[1, 3] = nn.PENALTY_BIG  # cloud 1: every point invalid
-    cases.append(("all-invalid cloud B=3 M=777 N=2100", grid[:777], invalid, False))
+    invalid[1, :, 3] = nn.PENALTY_BIG  # cloud 1: every point invalid
+    cases.append(("all-invalid cloud B=3 M=777 N=2100", grid[:777], invalid, None))
+    invalid_b1 = clouds(1, 25_600)
+    invalid_b1[0, :, 3] = nn.PENALTY_BIG
+    cases.append(("all-invalid cloud, split B=1 M=9600 N=25600", per_object[0], invalid_b1, "B=1"))
 
+    card = nn._k1_card(dev)
+    print(f"[kernel] K1 on {card[0]} SMs, {card[1]} resident blocks of {nn.K1_TILE_M} queries an SM "
+          f"(the occupancy API); the launch plan aims for {nn.K1_WAVES} x {card[0]} x {card[1]} blocks")
     max_err, k_ms, p_ms, b_ms = 0.0, 0.0, 0.0, 0.0
-    for name, q, rT, timed in cases:
-        got = nn.min_d2_batched(q, rT)
-        if rT is invalid and not bool((got[1] >= 1e38).all()):
-            raise AssertionError("K1: an all-invalid cloud must give the penalty, not a distance")
-        want = nn.min_d2_batched_reference(q, rT)
+    for name, q, r4, kind in cases:
+        got = nn.min_d2_batched(q, r4)
+        want = nn.min_d2_batched_reference(q, r4)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"K1 {name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         if not torch.isfinite(got).all():
             raise AssertionError(f"K1 {name}: non-finite output")
+        if r4 is invalid or r4 is invalid_b1:
+            bad = got[1] if r4 is invalid else got[0]
+            ref = want[1] if r4 is invalid else want[0]
+            if not (bool((bad >= 1e38).all()) and torch.equal(bad, ref)):
+                raise AssertionError(f"K1 {name}: an all-invalid cloud must give the plain version's penalty")
         err = float((got.double() - want.double()).abs().max())
         if err > FIELD_TOL:
             raise AssertionError(f"K1 {name}: max |d2 err| {err:.3e} > {FIELD_TOL:g}")
         max_err = max(max_err, err)
-        line = f"[kernel] {name}: max |d2 err| {err:.3e} m^2"
-        if timed:
-            kernel_t, plain_t = [], []
+        B, N, _ = r4.shape
+        M = q.shape[-2]
+        tile_m, S = nn._k1_launch_plan(B, M, N, *card)
+        line = f"[kernel] {name}: plan tile_m {tile_m} S {S}, {B * -(-M // tile_m) * S} blocks; max |d2 err| {err:.3e} m^2"
+        if kind == "B=1":
+            for split in (1, 2, 4, 8):
+                if not torch.equal(nn.min_d2_batched(q, r4, split=split), got):
+                    raise AssertionError(f"K1 {name}: split {split} differs from the plan's output")
+            line += "; S = 1, 2, 4, 8 bit-identical to it"
+        if kind is not None and r4 is not invalid_b1 and "ragged" not in name:
+            bm, by = k1_bound(B, M, N, q.numel())
+            kernel_t, plain_t, host_t = [], [], []
+
+            def kernel_call():  # the wrapper's host time rides along
+                t_host = time.perf_counter()
+                nn.min_d2_batched(q, r4)
+                host_t.append(1e3 * (time.perf_counter() - t_host))
+
             for _ in range(5):  # in turns: plain, kernel
-                plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(q, rT), 1)
-                kernel_t += cuda_ms(lambda: nn.min_d2_batched(q, rT), 1)
+                plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(q, r4), 1)
+                kernel_t += cuda_ms(kernel_call, 1)
             km, pm = statistics.median(kernel_t), statistics.median(plain_t)
-            B, _, N = rT.shape
-            M = q.shape[-2]
-            # 8 FP32 instructions a pair: 3 subtracts, a multiply, 2 fused
-            # multiply-adds, the penalty add and the min
-            bm, by = bound_ms(4 * (q.numel() + rT.numel() + B * M), 8 * B * M * N)
-            k_ms, p_ms, b_ms = k_ms + km, p_ms + pm, b_ms + bm
-            line += f"; median kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms"
-        print(line)
-    print(f"[kernel] K1 max |d2 err| {max_err:.3e} m^2 over {len(cases)} cases (tolerance {FIELD_TOL:g})")
+            line += (f"; median kernel {km:.4f} ms (the wrapper's host time {statistics.median(host_t):.4f} "
+                     f"ms of it at most), plain {pm:.4f} ms, bound {bm:.4f} ms ({by}), {bm / km:.1%} of it")
+            if kind == "B=1":  # device times, the plan and S = 1 in turns
+                planned_t, unsplit_t = [], []
+                for _ in range(3):
+                    planned_t.append(queued_ms(lambda: nn.min_d2_batched(q, r4)))
+                    unsplit_t.append(queued_ms(lambda: nn.min_d2_batched(q, r4, split=1)))
+                qm, um = statistics.median(planned_t), statistics.median(unsplit_t)
+                blocks_sm, clusters = nn.min_d2_occupancy(dev, tile_m, S)
+                line += (f"; launches queued back to back: {qm:.4f} ms a call, {bm / qm:.1%}; at S = 1 "
+                         f"(tile_m {nn.K1_TILE_M}, {B * -(-M // nn.K1_TILE_M)} blocks) {um:.4f} ms, {bm / um:.1%}; "
+                         f"occupancy {blocks_sm} blocks/SM, {clusters} clusters at once")
+            else:
+                k_ms, p_ms, b_ms = k_ms + km, p_ms + pm, b_ms + bm
+        print(line, flush=True)
+        del got, want
+    print(f"[kernel] K1 max |d2 err| {max_err:.3e} m^2 over {len(cases)} cases (tolerance {FIELD_TOL:g}); "
+          f"the slice's three passes {k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_ms / k_ms:.1%})")
     return max_err, k_ms, p_ms, b_ms, by
 
 
@@ -424,9 +489,10 @@ def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
                 kernel_t += cuda_ms(lambda: nn.nearest_batched(q, rT, normals), 1)
             km, pm = statistics.median(kernel_t), statistics.median(plain_t)
             pairs = q.shape[-2] * rT.shape[0] * rT.shape[2]
-            # about 10 FP32 instructions a pair (K1's 8 and two selects
-            # that carry the index); outputs d2 and index, with normals
-            # also the point and its normal
+            # about 10 FP32 instructions a pair (the squared distance with
+            # its penalty, the compare and two selects that carry the
+            # index); outputs d2 and index, with normals also the point
+            # and its normal
             n_out = q.shape[-2] * rT.shape[0] * (2 if normals is None else 8)
             n_in = q.numel() + rT.numel() + (0 if normals is None else normals.numel())
             bm, rec[4] = bound_ms(4 * (n_in + n_out), 10 * pairs)
@@ -487,8 +553,8 @@ def phase_slice(dev, cfg=None):
     # both fields and the pre-filter against the plain K1 on the card's clouds
     x, two = out["inputs"], out["fields"]
     grid = path.grid_pts
-    d2_obs = nn.min_d2_batched_reference(grid, nn._pack_refT(two.obs_pts, two.obs_mask))
-    d2_tgt = nn.min_d2_batched_reference(grid, nn._pack_refT(two.tgt_pts, two.tgt_mask))
+    d2_obs = nn.min_d2_batched_reference(grid, nn._pack_ref4(two.obs_pts, two.obs_mask))
+    d2_tgt = nn.min_d2_batched_reference(grid, nn._pack_ref4(two.tgt_pts, two.tgt_mask))
     f_all, f_obs = cost_fields_from_d2(
         d2_obs, d2_tgt, x["depth"], x["K"], x["cam_pose"], x["target_mask"], grid,
         cfg.depth_threshold, cfg.field_epsilon,
@@ -497,7 +563,7 @@ def phase_slice(dev, cfg=None):
     if not field_err <= FIELD_TOL:
         raise AssertionError(f"fields differ from the plain K1 by {field_err:.3e}")
     gp, d_obs_img = path.filter_queries(x)
-    d = torch.sqrt(nn.min_d2_batched_reference(gp, nn._pack_refT(two.obs_pts, two.obs_mask)))
+    d = torch.sqrt(nn.min_d2_batched_reference(gp, nn._pack_ref4(two.obs_pts, two.obs_mask)))
     sdf = torch.where(camera_outside(d_obs_img, x["K"], x["cam_pose"], gp), d, -d)
     keep = (sdf.reshape(out["keep"].shape + (-1,)) < 0).float().mean(dim=-1) <= 0.01
     if not torch.equal(keep, out["keep"]):
@@ -1109,13 +1175,13 @@ def check_k1_records(records):
 
     out = []
     for cloud, q, got in records:
-        rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
+        r4 = nn._pack_ref4(cloud.points_padded[None], cloud.valid[None])
         qc = q.contiguous()
-        kernel = nn.min_d2_batched(qc, rT)
-        plain = nn.min_d2_batched_reference(qc, rT)
+        kernel = nn.min_d2_batched(qc, r4)
+        plain = nn.min_d2_batched_reference(qc, r4)
         err = float((kernel.double() - plain.double()).abs().max())
         if not err <= FIELD_TOL:
-            raise AssertionError(f"K1 at B=1 M={q.shape[0]} N={rT.shape[2]}: max |d2 err| {err:.3e}")
+            raise AssertionError(f"K1 at B=1 M={q.shape[0]} N={r4.shape[1]}: max |d2 err| {err:.3e}")
         d = torch.sqrt(plain[0])
         want = torch.where(cloud.is_outside(qc), d, -d)
         if not torch.equal(got < 0, want < 0):
@@ -1123,24 +1189,29 @@ def check_k1_records(records):
         field_err = float((sdf_cost_shaping(got) - sdf_cost_shaping(want)).abs().max())
         if not field_err <= FIELD_TOL:
             raise AssertionError(f"K1 at B=1 M={q.shape[0]}: shaped field differs from plain by {field_err:.3e}")
-        out.append((q.shape[0], rT.shape[2], err))
+        out.append((q.shape[0], r4.shape[1], err))
         del kernel, plain
     return out
 
 
 def time_k1(cloud, q):
-    """(kernel ms, plain ms, bound ms, bound_by) of K1 at one B = 1 launch."""
+    """(kernel ms, queued ms, plain ms, bound ms, bound_by, (tile_m, S))
+    of K1 at one B = 1 launch: a lone call timed by CUDA events (the host's
+    launch work included where the card waits on it), and the device time
+    a call with the launches queued back to back (queued_ms)."""
     from grasptrajopt_tpu_torch.ops import nn
 
-    rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
+    r4 = nn._pack_ref4(cloud.points_padded[None], cloud.valid[None])
     qc = q.contiguous()
     kernel_t, plain_t = [], []
     for _ in range(3):  # in turns: plain, kernel
-        plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(qc, rT), 1)
-        kernel_t += cuda_ms(lambda: nn.min_d2_batched(qc, rT), 1)
-    M, N = qc.shape[0], rT.shape[2]
-    bm, by = bound_ms(4 * (qc.numel() + rT.numel() + M), 8 * M * N)
-    return statistics.median(kernel_t), statistics.median(plain_t), bm, by
+        plain_t += cuda_ms(lambda: nn.min_d2_batched_reference(qc, r4), 1)
+        kernel_t += cuda_ms(lambda: nn.min_d2_batched(qc, r4), 1)
+    qm = queued_ms(lambda: nn.min_d2_batched(qc, r4))
+    M, N = qc.shape[0], r4.shape[1]
+    bm, by = k1_bound(1, M, N, qc.numel())
+    plan = nn._k1_launch_plan(1, M, N, *nn._k1_card(qc.device))
+    return statistics.median(kernel_t), qm, statistics.median(plain_t), bm, by, plan
 
 
 def check_trial_solves(name, trial):
@@ -1281,8 +1352,8 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
     within the limits and pinned; each solve against the plain kernel
     (check_trial_solves); the result files round-trip through
     aggregate_results; K1 at the pipeline's B = 1 launches of the last
-    tabletop and the last shelf trial against plain, and timed at the
-    tabletop's field and replay shapes; both escalation tiers on the last
+    tabletop and the last shelf trial against plain, and timed at each
+    distinct launch shape of the two; both escalation tiers on the last
     shelf trial's observation (check_escalation_tier); one trial whose goal-set plan
     failed its gates profiled."""
     import os
@@ -1389,14 +1460,21 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
               "points, max |d2 err|): " + ", ".join(f"{m} x {n}: {e:.3e}" for m, n, e in checked)
               + f" (tolerance {FIELD_TOL:g}); fields and inside verdicts as plain's; "
               f"{time.perf_counter() - t0:.1f} s into the phase")
-    del shelf_records
-    field = next(r for r in records if r[1].shape[0] == robots["tabletop"].grid.size)
-    replay = next(r for r in records if r[1].shape[0] == 50 * robots["tabletop"].num_surface_points)
-    for label, (cloud, q, _) in (("field build", field), ("replay of one plan", replay)):
-        km, pm, bm, by = time_k1(cloud, q)
-        print(f"[closed-loop] K1 {label} B=1 M={q.shape[0]} N={cloud.points_padded.shape[0]}: median kernel "
-              f"{km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms ({by}), {bm / km:.1%} of the bound")
-    del records, field, replay
+    # K1 timed at every distinct B = 1 launch shape of those two trials
+    shapes = {}
+    for cloud, q, _ in records + shelf_records:
+        shapes.setdefault((q.shape[0], cloud.points_padded.shape[0]), (cloud, q))
+    trial_ms = {}
+    for (M, N), (cloud, q) in sorted(shapes.items()):
+        km, qm, pm, bm, by, (tile_m, S) = time_k1(cloud, q)
+        trial_ms[(M, N)] = km
+        print(f"[closed-loop] K1 B=1 M={M} N={N} (tile_m {tile_m}, S {S}): median kernel {km:.4f} ms "
+              f"({bm / km:.1%} of the bound), queued {qm:.4f} ms ({bm / qm:.1%}), plain {pm:.4f} ms, "
+              f"bound {bm:.4f} ms ({by})")
+    for st, recs in (("tabletop", records), ("shelf", shelf_records)):
+        total = sum(trial_ms[(q.shape[0], cloud.points_padded.shape[0])] for cloud, q, _ in recs)
+        print(f"[closed-loop] K1 in the last {st} trial: {len(recs)} launches, {total:.4f} ms at the times above")
+    del records, shelf_records, shapes
 
     # a trial whose goal-set plan failed its gates, again and profiled:
     # the other tabletop objects come from the counted run's results

@@ -2,10 +2,12 @@
 
 Port of grasptrajopt_tpu/ops/nn.py.
 
-K1 (`min_d2_batched`, `_pack_refT`, `min_sqdist_d2`): the dense SDF field
+K1 (`min_d2_batched`, `_pack_ref4`, `min_sqdist_d2`): the dense SDF field
 build asks, for each of M query points, the squared distance to the
 nearest valid point of each of B reference clouds. On the card this is
-the hand-written CUDA kernel `csrc/min_d2.cu`.
+the hand-written CUDA kernel `csrc/min_d2.cu`, which splits the cloud
+over a thread-block cluster where the queries alone would not fill the
+card (`_k1_launch_plan`).
 
 K2 and K3 (`nearest_batched`, one kernel `csrc/nearest.cu` in two modes):
 per query, the squared distance to the nearest valid reference point AND
@@ -52,26 +54,36 @@ _REFERENCE_CHUNK_ELEMS = 1 << 24  # (batch x queries x points) per plain chunk
 
 def _pack_refT(ref, ref_mask=None):
     """(B, N, 3) [+ (B, N) bool mask] -> (B, 4, N) rows x / y / z /
-    penalty (0 valid, PENALTY_BIG invalid). No padding: K1 masks the
-    ragged edge itself."""
+    penalty (0 valid, PENALTY_BIG invalid), the layout K2 / K3 read. No
+    padding: the kernel masks the ragged edge itself."""
     pen = torch.zeros(ref.shape[:-1], dtype=ref.dtype, device=ref.device)
     if ref_mask is not None:
         pen = torch.where(ref_mask, pen, torch.full_like(pen, PENALTY_BIG))
     return torch.cat([ref.transpose(-1, -2), pen[:, None, :]], dim=1).contiguous()
 
 
-def min_d2_batched_reference(q, rT):
-    """Plain-torch K1: q (M, 3) shared or (B, M, 3) per cloud; rT (B, 4, N).
+def _pack_ref4(ref, ref_mask=None):
+    """(B, N, 3) [+ (B, N) bool mask] -> (B, N, 4) rows x, y, z, penalty
+    (0 valid, PENALTY_BIG invalid), the layout K1 reads: 16 bytes a point,
+    so any run of points is one contiguous, aligned span. No padding."""
+    pen = torch.zeros(ref.shape[:-1] + (1,), dtype=ref.dtype, device=ref.device)
+    if ref_mask is not None:
+        pen = torch.where(ref_mask[..., None], pen, torch.full_like(pen, PENALTY_BIG))
+    return torch.cat([ref, pen], dim=-1).contiguous()
+
+
+def min_d2_batched_reference(q, r4):
+    """Plain-torch K1: q (M, 3) shared or (B, M, 3) per cloud; r4 (B, N, 4).
     Returns (B, M) = max(0, min_n (|q - r_n|^2 + pen_n)).
 
     Chunked over M so the (B, M, N) distance tensor never materializes
     (at the field build's widths it would be 4.7 GB per cloud).
     """
-    B, _, N = rT.shape
+    B, N, _ = r4.shape
     qb = q if q.dim() == 3 else q[None]
     M = qb.shape[1]
-    rx, ry, rz, pen = (rT[:, i, None, :] for i in range(4))  # (B, 1, N)
-    out = torch.empty((B, M), dtype=rT.dtype, device=rT.device)
+    rx, ry, rz, pen = (r4[:, None, :, i] for i in range(4))  # (B, 1, N)
+    out = torch.empty((B, M), dtype=r4.dtype, device=r4.device)
     chunk = max(1, _REFERENCE_CHUNK_ELEMS // max(B * N, 1))
     for m0 in range(0, M, chunk):
         qc = qb[:, m0 : m0 + chunk]
@@ -83,14 +95,81 @@ def min_d2_batched_reference(q, rT):
     return torch.clamp(out, min=0.0)
 
 
+# K1's launch geometry (csrc/min_d2.cu): a block takes tile_m = threads x
+# K1_QPT queries; a cluster of S blocks splits the cloud into S equal
+# shares, each streamed in K1_TILE_N-point tiles.
+K1_QPT = 2
+K1_TILE_M = 256  # 128 threads
+K1_MIN_TILE_M = 128  # 64 threads
+K1_TILE_N = 512
+K1_MAX_SPLIT = 8  # the portable cluster size
+K1_WAVES = 2  # the grid should cover the card this many times over
+# resident 256-query blocks an SM holds by nvcc's report (32 registers,
+# 26,648 bytes of shared memory: 8 of the SM's 227 KB); on the card the
+# wrapper asks the occupancy API instead
+K1_BLOCKS_PER_SM = 8
+
+
+def _k1_launch_plan(B, M, N, sm_count, blocks_per_sm=K1_BLOCKS_PER_SM, split=None):
+    """(tile_m, S) for one K1 launch of B clouds of N points against M
+    queries each, on a card of `sm_count` SMs that holds `blocks_per_sm`
+    K1 blocks each.
+
+    The grid is S x B x ceil(M / tile_m) blocks; the plan aims for
+    K1_WAVES x sm_count x blocks_per_sm of them. It takes the smallest S
+    (a power of two, at most K1_MAX_SPLIT and at most one share per
+    K1_TILE_N points) that reaches the aim with K1_TILE_M-query tiles, so
+    S = 1 where the queries alone fill the card; where S at its largest
+    still leaves the grid short, it halves the query tile, down to
+    K1_MIN_TILE_M. `split` forces S at K1_TILE_M (tests, measurements)."""
+    if split is not None:
+        if split not in (1, 2, 4, 8):
+            raise ValueError(f"K1's split must be 1, 2, 4 or 8, got {split}")
+        return K1_TILE_M, split
+    target = K1_WAVES * sm_count * blocks_per_sm
+    max_split = 1
+    while max_split * 2 <= min(K1_MAX_SPLIT, N // K1_TILE_N):
+        max_split *= 2
+    tile_m = K1_TILE_M
+    while True:
+        blocks = B * -(-M // tile_m)
+        S = 1
+        while S < max_split and blocks * S < target:
+            S *= 2
+        if blocks * S >= target or tile_m == K1_MIN_TILE_M:
+            return tile_m, S
+        tile_m //= 2
+
+
+def _k1_shares(N, S):
+    """[(n0, n1)]: the points each of the S blocks of a cluster walks, as
+    csrc/min_d2.cu cuts them."""
+    return [(N * s // S, N * (s + 1) // S) for s in range(S)]
+
+
+_k1_cards = {}
+
+
+def _k1_card(dev):
+    """(SMs, resident K1 blocks an SM holds) of CUDA device `dev`."""
+    if dev.index not in _k1_cards:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _k1_cards[dev.index] = (sms, min_d2_occupancy(dev, K1_TILE_M, 1)[0])
+    return _k1_cards[dev.index]
+
+
 def _declare(lib):
     # every pointer and the stream as c_void_p: ctypes would cut a plain
     # int argument to 32 bits
     lib.gto_min_d2.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.gto_min_d2.restype = ctypes.c_int
+    lib.gto_min_d2_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.gto_min_d2_occupancy.restype = ctypes.c_int
     lib.gto_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gto_cuda_error_string.restype = ctypes.c_char_p
 
@@ -128,33 +207,65 @@ def _check_cuda(name, *tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def min_d2_batched(q, rT):
+def _check_k1_shapes(q, r4):
+    if r4.dim() != 3 or r4.shape[2] != 4:
+        raise ValueError(f"r4 must be (B, N, 4), got {tuple(r4.shape)}")
+    if q.dim() not in (2, 3) or q.shape[-1] != 3:
+        raise ValueError(f"q must be (M, 3) or (B, M, 3), got {tuple(q.shape)}")
+    if q.dim() == 3 and q.shape[0] != r4.shape[0]:
+        raise ValueError(f"per-cloud queries {tuple(q.shape)} do not match r4 {tuple(r4.shape)}")
+    if q.shape[-2] == 0 or r4.shape[1] == 0:
+        raise ValueError("K1 needs at least one query and one reference point")
+
+
+def min_d2_batched(q, r4, split=None):
     """K1: (B, M) min squared distances of q ((M, 3) shared or (B, M, 3))
-    to the B reference sets of rT ((B, 4, N), see `_pack_refT`).
+    to the B reference sets of r4 ((B, N, 4), see `_pack_ref4`).
 
     CPU tensors take `min_d2_batched_reference`. CUDA tensors must be
-    contiguous float32 on one device and launch the kernel; anything else
-    raises.
+    contiguous float32 on one device, r4 16-byte aligned, and launch the
+    kernel once with `_k1_launch_plan`'s geometry; `split` forces the
+    cluster size S (1, 2, 4 or 8); the output is the same bits for every
+    S. Anything else, and a launch the card refuses, raises.
     """
     global min_d2_launches
-    _check_shapes(q, rT)
-    if q.device.type == "cpu" and rT.device.type == "cpu":
-        return min_d2_batched_reference(q, rT)
-    _check_cuda("K1", q, rT)
-    B, _, N = rT.shape
+    _check_k1_shapes(q, r4)
+    B, N, _ = r4.shape
     M = q.shape[-2]
+    if split is not None:
+        _k1_launch_plan(B, M, N, 1, split=split)  # validates it
+    if q.device.type == "cpu" and r4.device.type == "cpu":
+        return min_d2_batched_reference(q, r4)
+    _check_cuda("K1", q, r4)
+    if r4.data_ptr() % 16:
+        raise ValueError("K1 takes r4 at a 16-byte aligned address")
+    tile_m, S = _k1_launch_plan(B, M, N, *_k1_card(q.device), split=split)
     out = torch.empty((B, M), dtype=torch.float32, device=q.device)
     lib = cuda_build.load("min_d2", _declare)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gto_min_d2(
-            q.data_ptr(), 3 * M if q.dim() == 3 else 0, rT.data_ptr(), out.data_ptr(),
-            B, M, N, stream,
+            q.data_ptr(), 3 * M if q.dim() == 3 else 0, r4.data_ptr(), out.data_ptr(),
+            B, M, N, tile_m, S, stream,
         )
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: {lib.gto_cuda_error_string(err).decode()}")
+        raise RuntimeError(
+            f"K1 launch (tile_m {tile_m}, split {S}) failed: {lib.gto_cuda_error_string(err).decode()}"
+        )
     min_d2_launches += 1
     return out
+
+
+def min_d2_occupancy(dev, tile_m, split):
+    """(resident blocks per SM, clusters resident at once) of a K1 launch
+    with this geometry on CUDA device `dev`."""
+    lib = cuda_build.load("min_d2", _declare)
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.gto_min_d2_occupancy(tile_m, split, ctypes.byref(blocks), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"K1 occupancy query failed: {lib.gto_cuda_error_string(err).decode()}")
+    return blocks.value, clusters.value
 
 
 def min_sqdist_d2(query, ref, ref_mask=None):
@@ -162,8 +273,8 @@ def min_sqdist_d2(query, ref, ref_mask=None):
     distances from queries ((M, 3) shared or (B, M, 3)) to B reference
     clouds ref (B, N, 3) with optional validity masks (B, N). One K1
     launch on the card."""
-    rT = _pack_refT(ref, ref_mask)
-    return min_d2_batched(query.to(rT.dtype).contiguous(), rT)
+    r4 = _pack_ref4(ref, ref_mask)
+    return min_d2_batched(query.to(r4.dtype).contiguous(), r4)
 
 
 # -- K2 / K3: nearest point, its index, normal --------------------------------

@@ -45,18 +45,18 @@ def test_plain_k1_matches_pallas_interpret():
     rT = jnn._pack_refT(jnp.asarray(r), jnp.asarray(mask), tn=128)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jnn.min_d2_batched_pallas(q8, rT, tm=64, tn=128))[:, :M]
-    rT_port = pnn._pack_refT(torch.from_numpy(r), torch.from_numpy(mask))
-    got = pnn.min_d2_batched_reference(torch.from_numpy(q), rT_port)
+    r4 = pnn._pack_ref4(torch.from_numpy(r), torch.from_numpy(mask))
+    got = pnn.min_d2_batched_reference(torch.from_numpy(q), r4)
     np.testing.assert_allclose(np_(got), want, atol=1e-6, rtol=0)
     # the public wrapper takes the plain path for CPU tensors, counting nothing
     before = pnn.min_d2_launches
-    np.testing.assert_array_equal(np_(pnn.min_d2_batched(torch.from_numpy(q), rT_port)), np_(got))
+    np.testing.assert_array_equal(np_(pnn.min_d2_batched(torch.from_numpy(q), r4)), np_(got))
     assert pnn.min_d2_launches == before
     # per-cloud queries: cloud b's queries give cloud b's shared-query rows
     qb = torch.from_numpy(np.stack([q, q[::-1], q + 0.5]))
-    per = pnn.min_d2_batched_reference(qb, rT_port)
+    per = pnn.min_d2_batched_reference(qb, r4)
     for b in range(3):
-        shared = pnn.min_d2_batched_reference(qb[b], rT_port)[b]
+        shared = pnn.min_d2_batched_reference(qb[b], r4)[b]
         np.testing.assert_array_equal(np_(per[b]), np_(shared))
 
 

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on the card: the hand-written CUDA kernels against their
-plain-torch versions on the same CUDA tensors. Marked `gpu`; every test
+"""K1-K4 on the card: the hand-written CUDA kernels against their
+plain-torch versions on the same CUDA tensors; K1 at every cluster split. Marked `gpu`; every test
 skips where there is no CUDA device. Run on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -36,7 +36,7 @@ def _inputs(dev, B, M, N, per_cloud=False, seed=0):
     q = torch.rand((B, M, 3) if per_cloud else (M, 3), generator=g) * 2 - 1
     r = torch.rand((B, N, 3), generator=g) * 2 - 1
     mask = torch.rand((B, N), generator=g) > 0.3
-    return q.to(dev), nn._pack_refT(r.to(dev), mask.to(dev))
+    return q.to(dev), nn._pack_ref4(r.to(dev), mask.to(dev))
 
 
 @pytest.mark.parametrize(
@@ -46,40 +46,85 @@ def _inputs(dev, B, M, N, per_cloud=False, seed=0):
         (3, 1_000, 1_000, False),  # ragged M and N: not multiples of the tiles
         (2, 1, 1, False),
         (4, 9_600, 12_288, True),  # the grasp pre-filter's per-object queries (32 grasps x 300 points)
+        (1, 95_760, 25_600, False),  # the pipeline's B = 1 field build
+        (1, 50_000, 25_600, False),  # one plan's replay
+        (1, 50_000, 51_200, False),  # a replay over two fused views
+        (1, 9_600, 25_600, False),  # the grasp filter
+        (1, 20_001, 3 * 8 * 512 + 77, False),  # ragged N: not a multiple of S x the point tile
     ],
 )
 def test_kernel_matches_plain(cuda, B, M, N, per_cloud):
-    q, rT = _inputs(cuda, B, M, N, per_cloud)
+    q, r4 = _inputs(cuda, B, M, N, per_cloud)
     before = nn.min_d2_launches
-    got = nn.min_d2_batched(q, rT)
+    got = nn.min_d2_batched(q, r4)
     torch.cuda.synchronize()
     assert nn.min_d2_launches == before + 1
-    want = nn.min_d2_batched_reference(q, rT)
+    want = nn.min_d2_batched_reference(q, r4)
     assert got.shape == (B, M)
     assert float((got - want).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("B,M,N", [(1, 95_760, 25_600), (1, 9_600, 25_600), (2, 3_001, 3 * 8 * 512 + 77)])
+def test_every_split_gives_the_same_bits(cuda, B, M, N):
+    """The min is exact and order-free: every forced cluster size S gives
+    the chosen plan's output bit for bit."""
+    q, r4 = _inputs(cuda, B, M, N, seed=5)
+    planned = nn.min_d2_batched(q, r4)
+    for split in (1, 2, 4, 8):
+        assert torch.equal(nn.min_d2_batched(q, r4, split=split), planned), split
+
+
 def test_all_invalid_cloud_gives_penalty(cuda):
-    q, rT = _inputs(cuda, 3, 777, 2_100)
-    rT[1, 3] = nn.PENALTY_BIG  # cloud 1: every point invalid
-    got = nn.min_d2_batched(q, rT)
-    want = nn.min_d2_batched_reference(q, rT)
+    q, r4 = _inputs(cuda, 3, 777, 2_100)
+    r4[1, :, 3] = nn.PENALTY_BIG  # cloud 1: every point invalid
+    want = nn.min_d2_batched_reference(q, r4)
+    for split in (None, 4):
+        got = nn.min_d2_batched(q, r4, split=split)
+        torch.cuda.synchronize()
+        assert torch.all(got[1] == want[1])
+        assert torch.all(got[1] >= 1e38)
+        assert float((got[[0, 2]] - want[[0, 2]]).abs().max()) <= TOL
+
+
+def test_all_invalid_cloud_split_at_b1(cuda):
+    q, r4 = _inputs(cuda, 1, 9_600, 25_600)
+    r4[0, :, 3] = nn.PENALTY_BIG
+    assert nn._k1_launch_plan(1, 9_600, 25_600, *nn._k1_card(q.device))[1] > 1
+    got = nn.min_d2_batched(q, r4)
     torch.cuda.synchronize()
-    assert torch.all(got[1] == want[1])
-    assert torch.all(got[1] >= 1e38)
-    assert float((got[[0, 2]] - want[[0, 2]]).abs().max()) <= TOL
+    assert torch.equal(got, nn.min_d2_batched_reference(q, r4))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-    q, rT = _inputs(cuda, 2, 100, 100)
+    q, r4 = _inputs(cuda, 2, 100, 100)
     before = nn.min_d2_launches
     with pytest.raises(TypeError):
-        nn.min_d2_batched(q.double(), rT.double())
+        nn.min_d2_batched(q.double(), r4.double())
     with pytest.raises(ValueError):
-        nn.min_d2_batched(q.cpu(), rT)
+        nn.min_d2_batched(q.cpu(), r4)
     with pytest.raises(ValueError):
-        nn.min_d2_batched(q, rT[:, :, ::2])  # not contiguous
+        nn.min_d2_batched(q, r4[:, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        nn.min_d2_batched(q, r4, split=3)
+    with pytest.raises(ValueError):  # 4 bytes past an aligned address
+        nn.min_d2_batched(q, r4.reshape(-1)[1 : 1 + 2 * 99 * 4].view(2, 99, 4))
     assert nn.min_d2_launches == before
+
+
+@pytest.mark.parametrize("plan", [(256, 16), (1024, 1)])
+def test_refused_launch_raises(cuda, monkeypatch, plan):
+    """A geometry the card refuses (a cluster beyond the portable 8, a
+    block beyond the kernel's launch bounds) raises from the launch; the
+    wrapper never hands back another path's output."""
+    q, r4 = _inputs(cuda, 1, 5_000, 8_192)
+    monkeypatch.setattr(nn, "_k1_launch_plan", lambda *a, **k: plan)
+    before = nn.min_d2_launches
+    with pytest.raises(RuntimeError, match="K1 launch"):
+        nn.min_d2_batched(q, r4)
+    assert nn.min_d2_launches == before
+    monkeypatch.undo()
+    torch.cuda.synchronize()  # the refusal left no error behind
+    assert float((nn.min_d2_batched(q, r4) - nn.min_d2_batched_reference(q, r4)).abs().max()) <= TOL
 
 
 def test_min_sqdist_d2_is_exact_near_the_surface(cuda):
@@ -304,8 +349,8 @@ def _observation(width=160):
 
 def _cloud_plain_sdf(cloud, q):
     """The signed distances of the cloud's queries from K1's plain version."""
-    rT = nn._pack_refT(cloud.points_padded[None], cloud.valid[None])
-    d = torch.sqrt(nn.min_d2_batched_reference(q.contiguous(), rT)[0])
+    r4 = nn._pack_ref4(cloud.points_padded[None], cloud.valid[None])
+    d = torch.sqrt(nn.min_d2_batched_reference(q.contiguous(), r4)[0])
     return torch.where(cloud.is_outside(q), d, -d)
 
 
