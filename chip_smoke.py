@@ -43,19 +43,32 @@ result line:
      tolerance) as the plain minimum's, so a near-tie the fused
      multiply-adds break the other way passes; the returned point and
      normal are that row's, bit for bit. Median CUDA-event times of both;
-  5. slice: the perception-to-plan path (16 objects of the synthetic
-     tabletop scenes 10/36/48/65 at 160x160, 32 grasps each, the synthetic
-     7-DoF arm with 1,000 surface points on its 95,760-cell grid, IK 50
-     iterations, plan T = 50 with 3 iterations, coarse 2+1, final_trust),
-     once to warm up and once counted: K1 must launch exactly 3 times (two
-     field passes and the grasp pre-filter) and K4 3 times (the plan's
-     coarse, coarse and fine linearisations), both fields and the
-     pre-filter must agree with the plain version on the clouds the card
-     produced, the plan must be finite, within the joint limits and
-     pinned at its first two steps, and K4 must agree with its plain
-     version at the plan's body points as the planner passes them (the
-     x / y / z views of one (B, T, P, 3) tensor, the per-object row bases
-     of the stacked table) at the fine and the coarse stride;
+  5. slice: the perception-to-plan path of bench_e2e.py (e2e.PerceptionToPlan:
+     16 objects of the synthetic tabletop scenes 10/36/48/65 at 160x160, 32
+     grasps each, the synthetic 7-DoF arm with 1,000 surface points on its
+     95,760-cell grid; the multistart IK screen, 8 seeds x 24 iterations;
+     the warm start ranked at strides (4, 4); plan T = 50 with 3
+     iterations, coarse 2+1, final_trust; the rescue of the worst object
+     goal by goal), once to warm up and once counted: K1 must launch
+     exactly 3 times (two field passes and the grasp pre-filter) and K4 6
+     times (the plan's and the rescue's coarse, coarse and fine
+     linearisations), both fields and the pre-filter must agree with the
+     plain version on the clouds the card produced, the plans before and
+     after the rescue must be finite, within the joint limits and pinned
+     at their first two steps, and K4 must agree with its plain version at
+     the final plans' body points as the planner passes them (the x / y /
+     z views of one (B, T, P, 3) tensor, the per-object row bases of the
+     stacked table) at the fine and the coarse stride; ms per object for
+     each phase (fields, IK screen, ranking, plan, rescue), the rescues
+     applied and the gates (reach under the IK and the plan gates, the
+     replay collision against each object's obstacle cloud: K1 exactly
+     once an object), reported;
+     then the IK screen with its collision term at the same shape (512
+     goals x 8 seeds against the first object's obstacle field, one
+     table): K4 exactly 1 + 2 x 24 = 49 launches and no other kernel, K4
+     against plain at the solutions' body points, and the screen with the
+     plain lookup in K4's place, timed in turns, its col_cost reported
+     beside the kernel run's;
   6. per-goal tiers: for every object its kept and found grasps (all 32
      where none survives), one single-goal problem each (512 in all): the
      exact tier (points mode, 12 iterations, obstacle weight 40, against
@@ -83,8 +96,10 @@ result line:
      SoA tensors of the two-pass value passes, the slice's stacked table
      (16 objects, 98 MB), the TPU probe's shape (145,152 rows, 1.92 M
      points in the cells its uniform and coherent +-64 offsets name), and
-     ragged, outside, on-face and strided (AoS) points; each output within
-     1e-5 x (1 + |plain|), zero gradient outside the grid; the median
+     ragged, outside, on-face and strided (AoS) points, and K4's bf16 mode
+     at the bench's fine and coarse passes (AoS and SoA) and on the
+     stacked table cast to bf16; each output within 1e-5 x (1 + |plain|),
+     zero gradient outside the grid; the median
      device time a call of the kernel, the plain version and the two
      library gathers of the same rows (torch.index_select and table[rows];
      the faster is the yardstick), each call's launches queued back to
@@ -94,8 +109,10 @@ result line:
      back-to-back solves, one synchronize) and counted once: K4 exactly 3
      launches a solve in the
      default flavour (T = 50, single pass, coarse 2+1, final_trust), 7 in
-     the two-pass flavour (1 + 3 x 2) and 3 in the long-horizon flavour
-     (T = 200, cyclic reduction), K1-K3 none; the plans finite, within the
+     the two-pass flavour (1 + 3 x 2), 3 in the long-horizon flavour
+     (T = 200, cyclic reduction) and 3 in the bf16 flavour (the default
+     with a bf16 table, the JAX bench's BENCH_BF16), K1-K3 none; the plans
+     finite, within the
      limits, pinned, their final field values equal to plain K4's at the
      AoS views of their body points (fine and, with a coarse phase, coarse
      stride); the
@@ -132,8 +149,8 @@ result line:
      table); one failing trial again under torch.profiler.
      Trial lines, tiers, launches and the aggregate are printed, not gated;
   9. result: the nvidia-smi line, one JSON line of kernel records (with
-     each kernel's roofline bound and, for K4, the library call's time),
-     and the last line {"ok": true, "device": {...}}.
+     each kernel's roofline bound and, for K4 in each mode, the library
+     call's time), and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -523,11 +540,12 @@ def check_plans(name, Q, qc, robot):
 
 
 def phase_slice(dev, cfg=None):
+    """The perception-to-plan slice (e2e.PerceptionToPlan, bench_e2e.py's
+    phases) at full width, warmed up and counted; returns (K1 launches of
+    the counted run, K4 launches of the counted run, path, obs, out)."""
     import torch
 
-    from grasptrajopt_tpu_torch.e2e import (
-        PerceptionToPlan, SliceConfig, collect_observations, reach_fractions,
-    )
+    from grasptrajopt_tpu_torch.e2e import PerceptionToPlan, SliceConfig, collect_observations
     from grasptrajopt_tpu_torch.fields.depth_point_cloud import camera_outside, cost_fields_from_d2
     from grasptrajopt_tpu_torch.ops import interp, nn
     from grasptrajopt_tpu_torch.testing import make_synthetic_gripper, make_synthetic_gto_robot
@@ -541,14 +559,17 @@ def phase_slice(dev, cfg=None):
     torch.cuda.reset_peak_memory_stats(dev)
     print(f"[slice] set-up {time.perf_counter() - t0:.2f} s: {cfg.batch} objects, "
           f"{cfg.goal_capacity} grasps each, {robot.num_surface_points} body points, "
-          f"grid {robot.grid.shape} = {robot.grid.size} cells")
+          f"grid {robot.grid.shape} = {robot.grid.size} cells; IK {cfg.ik_seeds} seeds x {cfg.ik_iterations} "
+          f"iterations, ranking strides ({cfg.rank_t_stride}, {cfg.rank_p_stride}), coherence "
+          f"{cfg.goal_coherence}, rescue_k {cfg.rescue_k}")
     path.run(obs)  # warm-up: library handles, allocator
 
     nn.min_d2_launches = interp.field_lookup_launches = 0
     out = path.run(obs)
     launches, k4 = nn.min_d2_launches, interp.field_lookup_launches
-    if (launches, k4) != (3, 3):
-        raise AssertionError(f"the slice launched K1 {launches} and K4 {k4} times, expected 3 and 3")
+    want_k4 = K4_PLAN * (1 + int(cfg.rescue_k > 0))  # the plan and the rescue's single-goal solve
+    if (launches, k4) != (3, want_k4):
+        raise AssertionError(f"the slice launched K1 {launches} and K4 {k4} times, expected 3 and {want_k4}")
 
     # both fields and the pre-filter against the plain K1 on the card's clouds
     x, two = out["inputs"], out["fields"]
@@ -570,32 +591,120 @@ def phase_slice(dev, cfg=None):
         raise AssertionError("the grasp pre-filter differs from the plain K1's")
     print(f"[slice] fields vs plain K1: max |err| {field_err:.3e}; pre-filter identical")
 
-    Q, cost = out["Q"], out["cost"]
-    B, T = cfg.batch, cfg.T
-    if tuple(Q.shape) != (B, T, robot.num_opt_joints):
-        raise AssertionError(f"Q has shape {tuple(Q.shape)}")
-    Q_full = robot.assemble_q(Q, robot.extract_parameter_dimensions(path.qc))
-    check_plans("the plan", Q_full, path.qc, robot)
-    if not torch.isfinite(cost).all():
-        raise AssertionError(f"non-finite plan cost: {cost.tolist()}")
+    B, T, G = cfg.batch, cfg.T, cfg.goal_capacity
+    base = x["base_position"].expand(B, 3)[:, None, :]
+    for name, Q in (("goal-set plan", out["Q_plan"]), ("plan after the rescue", out["Q"])):
+        if tuple(Q.shape) != (B, T, robot.num_opt_joints):
+            raise AssertionError(f"{name}: Q has shape {tuple(Q.shape)}")
+        check_plans(f"the slice's {name}", path.full_q(Q), path.qc, robot)
+    if not torch.isfinite(out["cost"]).all():
+        raise AssertionError(f"non-finite plan cost: {out['cost'].tolist()}")
     if not (torch.isfinite(two.f_all).all() and torch.isfinite(two.f_obs).all()):
         raise AssertionError("non-finite cost field")
-    plan_err = check_plan_fields("slice plan final fields", path.planner, out["tables"], Q_full,
-                                 x["base_position"].expand(B, 3)[:, None, :], out["field_base"])
+    plan_err = check_plan_fields("slice plan final fields", path.planner, out["tables"], path.full_q(out["Q"]),
+                                 base, out["field_base"])
 
-    reach = reach_fractions(robot, path.link_ee, Q_full, x["tf_goal"], out["goal_mask"])
+    nn.min_d2_launches = 0
+    gates = path.gates(obs, out)
+    gate_k1 = nn.min_d2_launches
+    if gate_k1 != B:
+        raise AssertionError(f"the gates' replays launched K1 {gate_k1} times, expected {B}")
     ms = {k: 1e3 * v / B for k, v in out["seconds"].items()}
-    print(f"[slice] K1 launches {launches}, K4 {k4}; Q {tuple(Q.shape)} finite, within limits; "
-          f"cost median {float(cost.median()):.4f}, max {float(cost.max()):.4f}; final fields on the "
-          f"stacked table vs plain K4 (fine and coarse passes, AoS views): max |err| {plan_err:.3e}")
+    print(f"[slice] K1 launches {launches} (+ {gate_k1} in the gates' replays), K4 {k4} (plan {K4_PLAN} + "
+          f"rescue {k4 - K4_PLAN}); plans finite, within limits, pinned; cost median "
+          f"{float(out['cost'].median()):.4f}; final fields on the stacked table vs plain K4 (fine and coarse "
+          f"passes, AoS views): max |err| {plan_err:.3e}")
     print(f"[slice] kept grasps {int(out['keep'].sum())}/{out['keep'].numel()}, "
           f"IK found {int(out['found'].sum())}/{out['found'].numel()}, "
-          f"goal slots {int(out['goal_mask'].sum())}")
-    print(f"[slice] ms per object: fields {ms['fields']:.3f}, IK {ms['ik']:.3f}, "
-          f"plan {ms['plan']:.3f} (host clock around synchronized phases, batch {B})")
-    print(f"[slice] reach: {json.dumps(reach)} (reported, not gated)")
+          f"goal slots {int(out['goal_mask'].sum())}; rescue: objects {out['worst'].tolist()}, applied "
+          f"{int(out['rescued'].sum())} of {cfg.rescue_k}")
+    print(f"[slice] ms per object: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f", total {sum(ms.values()):.3f} ({B / sum(out['seconds'].values()):.3f} objects/s; host clock "
+          f"around synchronized phases, batch {B})")
+    print(f"[slice] gates: {json.dumps(gates)} (reported, not gated)")
     print(f"[slice] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
-    return launches, path, obs, out
+    return launches, k4, path, obs, out
+
+
+def phase_ik_collision(path, obs, out, dev):
+    """The IK screen with its collision term at the slice's shape: every
+    grasp of the 16 objects (512 goals x 8 seeds, 24 iterations) against
+    the first object's obstacle field, packed once into one table. K4
+    must launch exactly 1 + 2 x iterations times (the starting cost, then
+    per iteration the linearisation and the trial candidates) and nothing
+    else; K4 against plain at the solutions' body points (value and
+    gradient); the same screen with the plain lookup in K4's place, timed
+    in turns, and its col_cost beside the kernel run's (reported, not
+    gated: one flipped LM decision moves a solution and a floor-indexed
+    cost). Returns (K4 launches, max |err|)."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import interp, nn
+    from grasptrajopt_tpu_torch.planning import ik_solver
+    from grasptrajopt_tpu_torch.testing import SYNTH_LINK_EE, SYNTH_LINK_GRIPPER
+
+    cfg, robot = path.cfg, path.robot
+    x = out["inputs"]
+    B, G = x["tf_goal"].shape[:2]
+    goals = x["tf_goal"].reshape(B * G, 4, 4)
+    field = out["fields"].f_obs[0]
+    ik = ik_solver.IKSolver(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, iterations=cfg.ik_iterations,
+                            num_seeds=cfg.ik_seeds)
+    ik.setup_optimization(robot.grid)
+
+    def solve():
+        out = ik.solve_ik_batch(path.qc, goals, field, x["base_position"], multistart=True, seed=cfg.ik_seed)
+        torch.cuda.synchronize(dev)
+        return out
+
+    solve()  # warm-up
+    nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+    t0 = time.perf_counter()
+    q, err_pos, err_rot, col = solve()
+    kernel_s = time.perf_counter() - t0
+    counts = (nn.min_d2_launches, nn.nearest_launches, nn.min_sqdist_launches, interp.field_lookup_launches)
+    want = 1 + 2 * cfg.ik_iterations
+    if counts != (0, 0, 0, want):
+        raise AssertionError(f"the IK collision screen launched K1-K4 {counts} times, expected (0, 0, 0, {want})")
+    if not all(bool(torch.isfinite(t).all()) for t in (q, err_pos, err_rot, col)):
+        raise AssertionError("the IK collision screen returned non-finite values")
+    # K4 against plain where the term was last evaluated: the solutions' body points
+    g = robot.grid
+    table = g.pack(field)
+    pts = torch.stack(robot.surface_points_soa(robot.fk_components(q), x["base_position"]), dim=-1).contiguous()
+    args = (table, pts[..., 0], pts[..., 1], pts[..., 2], g.origin, g.shape, g.resolution)
+    err = check_lookup(f"IK collision term at {tuple(pts.shape[:-1])} body points",
+                       interp.field_lookup_packed_soa_grad(*args), interp.field_lookup_packed_soa_grad_reference(*args))
+
+    kernel_fn = ik_solver.field_lookup_packed_soa_grad
+    times = {"kernel": [kernel_s], "plain": []}
+    try:
+        for turn in ("plain", "kernel", "plain"):
+            ik_solver.field_lookup_packed_soa_grad = (
+                interp.field_lookup_packed_soa_grad_reference if turn == "plain" else kernel_fn
+            )
+            t0 = time.perf_counter()
+            res = solve()
+            times[turn].append(time.perf_counter() - t0)
+            if turn == "plain":
+                col_plain, found_plain = res[3], (res[1] < 0.01) & (res[2] < 5.0)
+    finally:
+        ik_solver.field_lookup_packed_soa_grad = kernel_fn
+    found = (err_pos < 0.01) & (err_rot < 5.0)
+    kernel_ms = 1e3 * statistics.median(times["kernel"]) / B
+    plain_ms = 1e3 * statistics.median(times["plain"]) / B
+    print(f"[ik-collision] {B * G} goals x {cfg.ik_seeds} seeds, {cfg.ik_iterations} iterations, "
+          f"{robot.num_surface_points} body points, table {table.shape[0]} rows: K4 launches {counts[3]} "
+          f"(1 + 2 x {cfg.ik_iterations}, as expected), K1-K3 none; K4 vs plain at the solutions' body points "
+          f"max |err| {err:.3e}; ms per object (host clock, synchronized): kernel {kernel_ms:.3f}, the plain "
+          f"lookup in its place {plain_ms:.3f} (runs {[round(1e3 * t / B, 3) for t in times['kernel']]} / "
+          f"{[round(1e3 * t / B, 3) for t in times['plain']]})")
+    print(f"[ik-collision] col_cost median {float(col.median()):.4f}, max {float(col.max()):.4f}; the plain "
+          f"run's: median {float(col_plain.median()):.4f}, max |difference| "
+          f"{float((col - col_plain).abs().max()):.3e}, equal on {float((col == col_plain).float().mean()):.4f} "
+          f"of goals; found {int(found.sum())} (plain run {int(found_plain.sum())}) of {B * G}, "
+          f"with col_cost < 5 {int((found & (col < 5.0)).sum())} (reported, not gated)")
+    return counts[3], err
 
 
 def phase_pergoal(path, obs, out, dev):
@@ -765,24 +874,26 @@ def lookup_rows(x, y, z, origin, shape, resolution, row_offset):
     return (offs + row_offset).reshape(-1)
 
 
-def lookup_bound(rows, n_points, n_bases):
+def lookup_bound(rows, n_points, n_bases, row_bytes=32):
     """K4's bound for one launch: 12 B of coordinates in and 16 B of value
     and gradient out a point, a 4-byte row base per (problem, step), the
-    32-byte corner rows this launch touches once each; about 50 FP32
-    instructions a point."""
+    corner rows this launch touches once each (32 B in float32, 16 B in
+    bf16); about 50 FP32 instructions a point."""
     import torch
 
     touched = int(torch.unique(rows).numel())
-    return bound_ms(28 * n_points + 4 * n_bases + 32 * touched, 50 * n_points)
+    return bound_ms(28 * n_points + 4 * n_bases + row_bytes * touched, 50 * n_points)
 
 
 def phase_field_lookup_vs_plain(dev, bench):
     """K4 against its plain version on the same CUDA tensors: the bench's
     fine and coarse passes (the shared table, body points of the warm
     starts), the slice's stacked table, the probe's shapes, and ragged,
-    outside, on-face and strided input. Returns the K4 record of the main
-    path's three launches a solve (two coarse, one fine): max |err|,
-    kernel / plain / library / bound ms, bound_by."""
+    outside, on-face and strided input; then the bench's passes and the
+    stacked table again with the tables in bf16 (the bf16 mode). Returns
+    the K4 records, float32 and bf16, of the main path's three launches a
+    solve (two coarse, one fine): max |err|, kernel / plain / library /
+    bound ms, bound_by."""
     import numpy as np
     import torch
 
@@ -855,6 +966,21 @@ def phase_field_lookup_vs_plain(dev, bench):
         pts, row = probe_points(offs)
         cases.append((f"probe shape S=145152 Q=1920000, {name} offsets", probe_table, pts,
                       p_origin, p_shape, p_res, row, f"probe {name}"))
+    # the bf16 mode: the same tables cast after packing, as VoxelGrid.pack(dtype=bf16) casts
+    table16, stacked16 = bench.table.to(torch.bfloat16), stacked.to(torch.bfloat16)
+    cases += [
+        (f"bf16 bench fine pass {tuple(fine[0].shape)}, shared bf16 table, AoS views", table16, fine,
+         g.origin, g.shape, g.resolution, phase, "bf16 fine"),
+        (f"bf16 bench coarse pass {tuple(coarse[0].shape)}, shared bf16 table, AoS views", table16, coarse,
+         g.origin, g.shape, g.resolution, phase, "bf16 coarse"),
+        (f"bf16 bench fine pass {tuple(fine[0].shape)}, shared bf16 table, SoA", table16, fine_soa,
+         g.origin, g.shape, g.resolution, phase, "bf16 fine SoA"),
+        (f"bf16 bench coarse pass {tuple(coarse[0].shape)}, shared bf16 table, SoA", table16, coarse_soa,
+         g.origin, g.shape, g.resolution, phase, "bf16 coarse SoA"),
+        (f"bf16 slice stacked table, 16 objects, {(16, T, robot.num_surface_points)}", stacked16,
+         uniform_points((16, T, robot.num_surface_points), grid_lo, grid_hi),
+         g.origin, g.shape, g.resolution, stacked_row, "bf16 stacked"),
+    ]
     cases += [
         ("ragged 3 x 7 x 11, AoS views (stride 3), 0.3 m beyond the grid", bench.table,
          (ragged_aos[..., 0], ragged_aos[..., 1], ragged_aos[..., 2]), g.origin, g.shape, g.resolution,
@@ -863,13 +989,13 @@ def phase_field_lookup_vs_plain(dev, bench):
          g.origin, g.shape, g.resolution, phase, None),
     ]
 
-    max_err, rec = 0.0, {}
+    max_err, rec = {torch.float32: 0.0, torch.bfloat16: 0.0}, {}
     for name, table, (x, y, z), origin, shape, res, row, timed in cases:
         got = interp.field_lookup_packed_soa_grad(table, x, y, z, origin, shape, res, row_offset=row)
         want = interp.field_lookup_packed_soa_grad_reference(table, x, y, z, origin, shape, res, row_offset=row)
         torch.cuda.synchronize()
         err = check_lookup(f"K4 {name}", got, want)
-        max_err = max(max_err, err)
+        max_err[table.dtype] = max(max_err[table.dtype], err)
         line = f"[lookup] {name}: max |err| {err:.3e}"
         if name.startswith("ragged"):
             ux = (x.double() - origin[0]) / res
@@ -895,7 +1021,7 @@ def phase_field_lookup_vs_plain(dev, bench):
                       f"table[rows] {device_kernels(lambda: table[rows])}")
             lone = statistics.median(cuda_ms(lambda: interp.field_lookup_packed_soa_grad(
                 table, x, y, z, origin, shape, res, row_offset=row), 5))
-            bm, by = lookup_bound(rows, x.numel(), n_bases)
+            bm, by = lookup_bound(rows, x.numel(), n_bases, 8 * table.element_size())
             rec[timed] = (km, pm, min(sm, im), bm, by)
             line += (f"; median device time a call, queued: kernel {km:.4f} ms, plain {pm:.4f} ms, "
                      f"index_select {sm:.4f} ms, table[rows] {im:.4f} ms; bound {bm:.4f} ms ({by}); "
@@ -907,15 +1033,18 @@ def phase_field_lookup_vs_plain(dev, bench):
     def solve_record(f, c):  # a default solve's three launches: 2 coarse + 1 fine
         return tuple(a + 2 * b for a, b in zip(f[:4], c[:4])) + (f[4],)
 
-    ms, plain_ms, library_ms, bound, bound_by = solve_record(rec["fine"], rec["coarse"])
-    soa = solve_record(rec["fine SoA"], rec["coarse SoA"])
-    out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound, "bound_by": bound_by}
-    print(f"[lookup] K4 max |err| {max_err:.3e} over {len(cases)} cases (tolerance {LOOKUP_TOL:g} x (1 + |plain|)); "
-          f"a default solve's three launches (2 coarse + fine, AoS views as the planner passes them): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (the faster of index_select and table[rows]) "
-          f"{library_ms:.4f} ms, bound {bound:.4f} ms; the same passes on SoA tensors: kernel {soa[0]:.4f} ms, "
-          f"plain {soa[1]:.4f} ms, library {soa[2]:.4f} ms")
+    out = {}
+    for mode, dtype, prefix in (("float32", torch.float32, ""), ("bf16", torch.bfloat16, "bf16 ")):
+        ms, plain_ms, library_ms, bound, bound_by = solve_record(rec[prefix + "fine"], rec[prefix + "coarse"])
+        soa = solve_record(rec[prefix + "fine SoA"], rec[prefix + "coarse SoA"])
+        out[mode] = {"max_abs_err": max_err[dtype], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": bound_by}
+        n_cases = sum(1 for c in cases if c[1].dtype == dtype)
+        print(f"[lookup] K4 {mode} tables: max |err| {max_err[dtype]:.3e} over {n_cases} cases (tolerance "
+              f"{LOOKUP_TOL:g} x (1 + |plain|)); a default solve's three launches (2 coarse + fine, AoS views as "
+              f"the planner passes them): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (the faster of "
+              f"index_select and table[rows]) {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); the same "
+              f"passes on SoA tensors: kernel {soa[0]:.4f} ms, plain {soa[1]:.4f} ms, library {soa[2]:.4f} ms")
     return out
 
 
@@ -950,8 +1079,8 @@ def phase_warm_start_report(bench):
     IK's shares on the same goals."""
     B, cap = bench.tf_goal.shape[:2]
     goals = bench.tf_goal.reshape(B * cap, 4, 4)
-    _, pos, rot = bench.ik.solve_ik_batch(bench.qc, goals)
-    _, pos_m, rot_m = bench.ik.solve_ik_batch(bench.qc, goals, multistart=True)
+    _, pos, rot, _ = bench.ik.solve_ik_batch(bench.qc, goals)
+    _, pos_m, rot_m, _ = bench.ik.solve_ik_batch(bench.qc, goals, multistart=True)
     hard = int((pos.reshape(B, cap) > 0.01).all(dim=1).sum())
     print(f"[bench] IK warm start on {B * cap} goals: single seed {float((pos < 0.01).float().mean()):.4f} "
           f"within 1 cm, {float((rot < 5.0).float().mean()):.4f} within 5 degrees, median rotation error "
@@ -962,8 +1091,8 @@ def phase_warm_start_report(bench):
 
 def phase_bench(dev):
     """The port's bench solve (grasptrajopt_tpu_torch.bench) at full width
-    in its three flavours, and K4 against plain. Returns (the K4 record,
-    K4 launches of one default solve)."""
+    in its four flavours, and K4 against plain. Returns (the K4 records,
+    float32 and bf16, and K4 launches of one default and one bf16 solve)."""
     import torch
 
     from grasptrajopt_tpu_torch import bench as pb
@@ -972,15 +1101,17 @@ def phase_bench(dev):
 
     robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
     k4 = None
-    default_launches = None
-    for flavour, want in (("default", 3), ("two_pass", 7), ("long_horizon", 3)):
+    launches = {}
+    for flavour, want in (("default", 3), ("two_pass", 7), ("long_horizon", 3), ("bf16", 3)):
         cfg = pb.FLAVOURS[flavour]
         t0 = time.perf_counter()
         bench = pb.SolveBench(robot, cfg)
         torch.cuda.synchronize(dev)
         print(f"[bench] {flavour}: B={cfg.batch} goals {cfg.goal_capacity} T={cfg.T} iterations {cfg.iterations} "
               f"single_pass {cfg.single_pass} coarse {cfg.coarse_iterations} final_trust {cfg.final_trust} "
-              f"cyclic_reduction {cfg.cyclic_reduction}; {robot.num_surface_points} body points, "
+              f"cyclic_reduction {cfg.cyclic_reduction}, table {cfg.field_dtype} (itemsize "
+              f"{bench.table.element_size()}, {bench.gather_bytes()} corner-row bytes a solve); "
+              f"{robot.num_surface_points} body points, "
               f"{robot.grid.size}-cell grid; set-up (IK warm start) {time.perf_counter() - t0:.2f} s")
         if flavour == "default":
             k4 = phase_field_lookup_vs_plain(dev, bench)
@@ -994,8 +1125,7 @@ def phase_bench(dev):
         counts = (nn.min_d2_launches, nn.nearest_launches, nn.min_sqdist_launches, interp.field_lookup_launches)
         if counts != (0, 0, 0, want):
             raise AssertionError(f"bench {flavour}: K1-K4 launched {counts} times a solve, expected (0, 0, 0, {want})")
-        if flavour == "default":
-            default_launches = counts[3]
+        launches[flavour] = counts[3]
         if tuple(Q.shape) != (cfg.batch, cfg.T, robot.num_opt_joints) or not bool(torch.isfinite(cost).all()):
             raise AssertionError(f"bench {flavour}: Q {tuple(Q.shape)}, cost {cost.tolist()}")
         check_plans(f"bench {flavour}", bench.full_q(Q), bench.qc, robot)
@@ -1010,7 +1140,7 @@ def phase_bench(dev):
         if flavour == "long_horizon":
             phase_cr_vs_thomas(dev, cfg.batch, cfg.T - 2, robot.num_opt_joints)
         del bench, timed, Q
-    return k4, default_launches
+    return k4, launches
 
 
 # the closed-loop phase's planner flavour: the bench's (3 iterations, single
@@ -1517,11 +1647,15 @@ def main() -> int:
     grid_pts = make_synthetic_gto_robot(device=dev, points_per_link=1).grid.grid_points(np.float32)
     max_err, k_ms, p_ms, b_ms, b_by = phase_kernel_vs_plain(grid_pts, dev)
     near = phase_nearest_vs_plain(grid_pts, dev)
-    launches, path, obs, out = phase_slice(dev)
+    launches, slice_k4, path, obs, out = phase_slice(dev)
+    ik_k4, ik_err = phase_ik_collision(path, obs, out, dev)
     k2_launches, k3_launches = phase_pergoal(path, obs, out, dev)
     del path, obs, out
     k4, k4_launches = phase_bench(dev)
     phase_closed_loop(dev)
+    print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
+          f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
+          f"(max |err| there {ik_err:.3e})")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):
@@ -1530,6 +1664,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
         }
+
+    def k4_fields(r):
+        return r["max_abs_err"], r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"], r["library_ms"]
 
     # K1-K3 have no library call: torch.cdist in its exact mode would
     # materialize every (query, point) distance
@@ -1542,8 +1679,9 @@ def main() -> int:
         record("K3 min_sqdist (nearest.cu in its index-only mode: d2 and argmin under a mask)", "nearest.cu",
                "grasptrajopt_tpu/ops/nn.py:420", k3_launches, *near["K3"], None),
         record("K4 field_lookup (packed-row trilinear lookup with its closed-form gradient)", "field_lookup.cu",
-               "tools/probe_vmem_gather.py:52", k4_launches, k4["max_abs_err"], k4["ms"], k4["plain_ms"],
-               k4["bound_ms"], k4["bound_by"], k4["library_ms"]),
+               "tools/probe_vmem_gather.py:52", k4_launches["default"], *k4_fields(k4["float32"])),
+        record("K4 field_lookup, bf16-row mode (one 16-byte row a point, upcast to float32)", "field_lookup.cu",
+               "tools/probe_vmem_gather.py:52", k4_launches["bf16"], *k4_fields(k4["bf16"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

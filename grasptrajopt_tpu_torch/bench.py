@@ -7,21 +7,25 @@ its best IK solution: the synthetic arm `synth7` (bench.py's branch
 without robot data), B = 32 problems of 8 goals, T = 50, 3 single-pass LM
 iterations with the coarse phase 2+1 at stride 2 and final_trust. Two
 other flavours: the two-pass iteration (coarse and final_trust off) and a
-long horizon (T = 200, cyclic-reduction KKT).
+long horizon (T = 200, cyclic-reduction KKT); and the default flavour with
+the corner table in bf16 (the JAX bench's BENCH_BF16=1: half the bytes
+of every row K4 reads, upcast to float32 after the load).
 
 Per solve the field lookup (kernel K4) launches once per linearisation
 and once per candidate pass: 3 times in the default and long-horizon
-flavours (2 coarse + 1 fine; final_trust skips the post-scan pass), 7 in
-the two-pass flavour (1 + 3 x 2).
+and bf16 flavours (2 coarse + 1 fine; final_trust skips the post-scan
+pass), 7 in the two-pass flavour (1 + 3 x 2).
 
 Run on a machine with a CUDA device (there is no CPU measurement path):
 
-    python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon] [--profile]
+    python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon|bf16] [--profile]
 
 It prints one JSON line: latency (best of `reps` synchronized solves),
 sustained plans/s (`pipe_reps` solves issued back to back, one
-synchronize at the end), the bench's quality gates (`quality_gates`) and,
-with --profile, where one solve's time goes (`profile_solve`).
+synchronize at the end), the table's `itemsize` and the corner-row bytes
+K4 reads a solve (`gather_bytes`, as the JAX bench counts them), the
+bench's quality gates (`quality_gates`) and, with --profile, where one
+solve's time goes (`profile_solve`).
 """
 
 from __future__ import annotations
@@ -132,6 +136,7 @@ class SolveBenchConfig:
     axis_standoff: str = "z"
     goal_weight: float = 1.0
     goal_coherence: float = 0.0
+    field_dtype: str = "float32"  # the corner table's dtype: "float32" or "bfloat16"
     reps: int = 2  # synchronized solves; the best is the latency
     pipe_reps: int = 5  # back-to-back solves of the sustained rate
 
@@ -142,6 +147,8 @@ FLAVOURS = {
     "two_pass": SolveBenchConfig(single_pass=False, coarse_iterations=0, final_trust=False),
     # BENCH_T=200 BENCH_CR=1
     "long_horizon": SolveBenchConfig(T=200, cyclic_reduction=True),
+    # BENCH_BF16=1
+    "bf16": SolveBenchConfig(field_dtype="bfloat16"),
 }
 
 
@@ -155,11 +162,11 @@ def warm_start(robot, ik: IKSolver, qc, tf_goal, T: int, seed: int = 0, restarts
     Returns (X0 (B, T, n_opt), warm_goal (B,))."""
     B, cap = tf_goal.shape[:2]
     goals = tf_goal.reshape(B * cap, 4, 4)
-    qsol, pos, rot = ik.solve_ik_batch(qc, goals)
+    qsol, pos, rot, _ = ik.solve_ik_batch(qc, goals)
     err = (pos + 2e-3 * rot).reshape(B, cap)
     hard = (pos.reshape(B, cap) > 0.01).all(dim=1)
     if bool(hard.any()):
-        qsol_m, pos_m, rot_m = ik.solve_ik_batch(qc, goals, multistart=True, seed=seed, restarts=restarts)
+        qsol_m, pos_m, rot_m, _ = ik.solve_ik_batch(qc, goals, multistart=True, seed=seed, restarts=restarts)
         err = torch.where(hard[:, None], (pos_m + 2e-3 * rot_m).reshape(B, cap), err)
         qsol = torch.where(hard.repeat_interleave(cap)[:, None], qsol_m, qsol)
     warm_goal = torch.argmin(err, dim=1)
@@ -212,22 +219,24 @@ class SolveBench:
     def __init__(self, robot, cfg: SolveBenchConfig = SolveBenchConfig()):
         self.robot, self.cfg = robot, cfg
         dev, dt = robot.device, robot.dtype
+        field_dtype = getattr(torch, cfg.field_dtype)
         self.planner = GTOPlanner(
             robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, iterations=cfg.iterations,
             standoff_distance=cfg.standoff_distance, single_pass=cfg.single_pass,
             cyclic_reduction=cfg.cyclic_reduction, goal_weight=cfg.goal_weight, T=cfg.T,
             coarse_iterations=cfg.coarse_iterations, coarse_stride=cfg.coarse_stride,
             final_trust=cfg.final_trust, goal_coherence=cfg.goal_coherence,
+            field_dtype=None if field_dtype == torch.float32 else field_dtype,
         )
         self.solvers = self.planner.setup_optimization(
             goal_size=cfg.goal_capacity, use_standoff=True, axis_standoff=cfg.axis_standoff
         )
-        self.ik = IKSolver(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER)
+        self.ik = IKSolver(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, collision_avoidance=False)
         B = cfg.batch
         self.qc = torch.as_tensor(SYNTH_DEFAULT_POSE, dtype=dt, device=dev)
         self.tf_goal = torch.as_tensor(synthetic_goal_sets(B, cfg.goal_capacity), dtype=dt, device=dev)
         field = torch.as_tensor(make_cost_field(robot.grid), dtype=dt, device=dev)
-        packed = robot.grid.pack(field)
+        packed = robot.grid.pack(field, self.planner.field_dtype)
         # one shared table: the scene field and the target-free field, here both the slab's
         self.table = torch.cat([packed, packed], dim=0)
         self.X0, self.warm_goal = warm_start(robot, self.ik, self.qc, self.tf_goal, cfg.T - 2)
@@ -247,6 +256,18 @@ class SolveBench:
         return self.solvers.solve_batch_shared(
             self.qc_opt, self.X0, self.params, {"packed_fields": self.table}
         )
+
+    def gather_bytes(self) -> int:
+        """Corner-row bytes K4 reads in one solve (the JAX bench's
+        gather_bytes): one row per (problem, step, surface point) of each
+        pass, the coarse passes at the stride subsample, the post-scan pass
+        unless final_trust skips it."""
+        cfg = self.cfg
+        P = self.robot.num_surface_points
+        p_coarse = -(-P // cfg.coarse_stride)
+        full_passes = (cfg.iterations - cfg.coarse_iterations) + (0 if cfg.final_trust else 1)
+        rows = cfg.batch * cfg.T * (cfg.coarse_iterations * p_coarse + full_passes * P)
+        return rows * 8 * self.table.element_size()
 
     def full_q(self, Q):
         return self.robot.assemble_q(Q, self.q_param[:, None, :])
@@ -341,6 +362,8 @@ def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool
         "latency_s": timed["latency_s"],
         "latency_runs_s": timed["latency_runs_s"],
         "plans_per_s": timed["plans_per_s"],
+        "itemsize": bench.table.element_size(),
+        "gather_bytes": bench.gather_bytes(),
         "quality": bench.gates(timed["Q"]),
     }
     if profile:

@@ -1,7 +1,9 @@
 // K4: packed-row trilinear field lookup with its closed-form gradient.
 //
 // Per query point p = (x, y, z), against a table of packed corner rows
-// (R, 8) float32 (VoxelGrid.pack: the 8 trilinear corners of each cell):
+// (R, 8) float32 or bfloat16 (VoxelGrid.pack: the 8 trilinear corners of
+// each cell; bf16 rows are upcast to float32 after the load, as the JAX
+// lookup upcasts the gathered rows):
 //
 //   u    = (p - origin) * inv                      (float32, not contracted)
 //   b    = clamp(floor(u), 0, shape - 2)           (the base cell)
@@ -25,16 +27,19 @@
 // problem's field_base), or one per point.
 //
 // What bounds it on the card: bytes. Each point reads 12 B of coordinates
-// and writes 16 B of value and gradient; its 32-byte corner row is an L2
-// hit once the table is resident (the bench's shared table is 2 x 95,760
-// rows x 32 B = 6.1 MB of the 50 MB L2). At the bench's fine pass (32 x 50
-// x 1,000 = 1.6 M points) that is ~45 MB, ~14 us at 3.35 TB/s; the ~60
-// flops a point are far below the FP32 rate.
+// and writes 16 B of value and gradient; its corner row (32 B in float32,
+// 16 B in bf16) is an L2 hit once the table is resident (the bench's
+// shared table is 2 x 95,760 rows x 32 B = 6.1 MB of the 50 MB L2). At the
+// bench's fine pass (32 x 50 x 1,000 = 1.6 M points) that is ~45 MB, ~14 us
+// at 3.35 TB/s; the ~60 flops a point are far below the FP32 rate. The bf16
+// mode halves only the row bytes, so its bound stays the points' 28 B.
 //
 // What the design does about it: one thread per point, consecutive threads
 // on consecutive points, so the coordinate reads and the four output
 // writes coalesce; the corner row is two 16-byte loads through the
-// read-only path. The cell computation uses round-to-nearest intrinsics in
+// read-only path (bf16: one 16-byte load, each 32-bit word two corners,
+// widened to float32 by a 16-bit shift, which is exact). The cell
+// computation uses round-to-nearest intrinsics in
 // the plain version's order so every point lands in the same cell as in
 // the plain version; the interpolation may contract into fused
 // multiply-adds (a few ulp). Shared memory, tiling and fusing the Jacobian
@@ -53,11 +58,32 @@ __device__ __forceinline__ int base_cell(float u, int hi) {
   return (int)fminf(fmaxf(floorf(u), 0.f), (float)hi);
 }
 
+// the 8 corners of one row: c000 c001 c010 c011 c100 c101 c110 c111
+template <bool BF16>
+__device__ __forceinline__ void load_corners(const uint4* __restrict__ packed, long long row,
+                                             float c[8]) {
+  if (BF16) {
+    const uint4 w = __ldg(packed + row);  // 8 bf16, little-endian pairs
+    const unsigned int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[2 * k] = __uint_as_float(words[k] << 16);
+      c[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+    }
+  } else {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(packed) + 2 * row);
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(packed) + 2 * row + 1);
+    c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+    c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+  }
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 field_lookup_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ z, long long stride, int n,
                     const int* __restrict__ row_base, int rb_div,
-                    const float4* __restrict__ packed, long long n_rows,
+                    const uint4* __restrict__ packed, long long n_rows,
                     float ox, float oy, float oz, float inv, int sx, int sy, int sz,
                     float* __restrict__ val, float* __restrict__ gx,
                     float* __restrict__ gy, float* __restrict__ gz) {
@@ -86,20 +112,20 @@ field_lookup_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const float my = (ry >= 0.f && ry <= 1.f) ? inv : 0.f;
   const float mz = (rz >= 0.f && rz <= 1.f) ? inv : 0.f;
 
-  const float4 lo = __ldg(packed + 2 * row);      // c000 c001 c010 c011
-  const float4 hi = __ldg(packed + 2 * row + 1);  // c100 c101 c110 c111
+  float c[8];
+  load_corners<BF16>(packed, row, c);
   const float wx = 1.f - fx, wy = 1.f - fy, wz = 1.f - fz;
-  const float c00 = lo.x * wz + lo.y * fz;
-  const float c01 = lo.z * wz + lo.w * fz;
-  const float c10 = hi.x * wz + hi.y * fz;
-  const float c11 = hi.z * wz + hi.w * fz;
+  const float c00 = c[0] * wz + c[1] * fz;
+  const float c01 = c[2] * wz + c[3] * fz;
+  const float c10 = c[4] * wz + c[5] * fz;
+  const float c11 = c[6] * wz + c[7] * fz;
   const float c0 = c00 * wy + c01 * fy;
   const float c1 = c10 * wy + c11 * fy;
   val[i] = c0 * wx + c1 * fx;
   gx[i] = (c1 - c0) * mx;
   gy[i] = ((c01 - c00) * wx + (c11 - c10) * fx) * my;
-  const float dz0 = (lo.y - lo.x) * wy + (lo.w - lo.z) * fy;
-  const float dz1 = (hi.y - hi.x) * wy + (hi.w - hi.z) * fy;
+  const float dz0 = (c[1] - c[0]) * wy + (c[3] - c[2]) * fy;
+  const float dz1 = (c[5] - c[4]) * wy + (c[7] - c[6]) * fy;
   gz[i] = (dz0 * wx + dz1 * fx) * mz;
 }
 
@@ -108,19 +134,21 @@ field_lookup_kernel(const float* __restrict__ x, const float* __restrict__ y,
 extern "C" {
 
 // x / y / z: n float32 points, `stride` elements apart; row_base: int32,
-// one per rb_div consecutive points; packed: (n_rows, 8) float32, 16-byte
-// aligned; val / gx / gy / gz: n float32 each. Returns the launch's
-// cudaError_t (0 on success).
+// one per rb_div consecutive points; packed: (n_rows, 8) float32 (bf16 = 0)
+// or bfloat16 (bf16 = 1), 16-byte aligned; val / gx / gy / gz: n float32
+// each. Returns the launch's cudaError_t (0 on success).
 int gto_field_lookup(const void* x, const void* y, const void* z, long long stride, int n,
                      const void* row_base, int rb_div, const void* packed, long long n_rows,
-                     float ox, float oy, float oz, float inv, int sx, int sy, int sz,
+                     int bf16, float ox, float oy, float oz, float inv, int sx, int sy, int sz,
                      void* val, void* gx, void* gy, void* gz, void* stream) {
-  if (n <= 0 || stride <= 0 || rb_div <= 0 || n_rows <= 0 || sx < 2 || sy < 2 || sz < 2)
+  if (n <= 0 || stride <= 0 || rb_div <= 0 || n_rows <= 0 || sx < 2 || sy < 2 || sz < 2 ||
+      (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS;
-  field_lookup_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = bf16 ? field_lookup_kernel<true> : field_lookup_kernel<false>;
+  kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)y, (const float*)z, stride, n, (const int*)row_base, rb_div,
-      (const float4*)packed, n_rows, ox, oy, oz, inv, sx, sy, sz,
+      (const uint4*)packed, n_rows, ox, oy, oz, inv, sx, sy, sz,
       (float*)val, (float*)gx, (float*)gy, (float*)gz);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """The perception-to-plan path, batch-first: depth images in, plans out.
 
-Mirrors the JAX package's end-to-end benchmark chain (bench_e2e.py,
-fields -> IK -> plan) on the port:
+Mirrors the JAX package's end-to-end benchmark (bench_e2e.py) on the
+port, phase by phase:
 
   1. fields: per observation, the voxel-deduplicated obstacle cloud and
      the target pixels -> the scene and target-free obstacle cost fields
@@ -10,12 +10,29 @@ fields -> IK -> plan) on the port:
      gripper model's surface points (hand and both fingers) at the open
      finger offsets, placed at every grasp's standoff pose, against the
      obstacle cloud (one more K1 launch);
-  2. IK screen: one single-seed projected-LM batch over every grasp of
-     every object, gated at 1 cm / 5 degrees; the warm start interpolates
-     to each object's lowest err_pos + 2e-3 * err_rot IK solution;
-  3. plan: the goal-set trajectory solve over per-problem stacked fields,
+  2. IK screen: every grasp of every object, each from the start pose and
+     ik_seeds - 1 random restarts, as one multistart projected-LM batch
+     (no collision term, as bench_e2e.py runs it), gated at 1 cm / 5
+     degrees;
+  3. ranking: every IK solution interpolated into a seed trajectory and
+     scored by the planner's own `rank_seed_scores` (the floor-indexed
+     target-free field summed over every rank_t-th step and rank_p-th body
+     point, travel as the tie break; goals the screen missed rank inf)
+     and `rank_pick`; the winner is the warm start, its goal the optional
+     coherence seed;
+  4. plan: the goal-set trajectory solve over per-problem stacked fields,
      goal slots = pre-filter keep & IK found (all slots where none
-     survives).
+     survives);
+  5. rescue: the rescue_k objects whose plans reach their goals worst
+     (position error + 2e-3 x rotation error in degrees) have every goal
+     slot re-solved as a single-goal problem from its own IK solution, in
+     one batch on the same stacked table; an object's best per-goal plan
+     replaces its goal-set plan where it reaches better.
+
+`gates` then scores the plans (untimed, as bench_e2e.py): reach under the
+IK gates and the plan gates, and the replay collision against each
+object's exact obstacle cloud (planning/evaluate.py, one K1 launch an
+object).
 
 After the IK screen, `PerceptionToPlan.pergoal` runs the JAX pipeline's
 per-goal tiers (planning/pipeline.py `_plan_pergoal_exact` and the
@@ -38,10 +55,21 @@ for objects whose plan fails its replay scorer.
 
 Observations come from the synthetic tabletop scenes on the host
 (`collect_observations`); everything after that runs on one device.
+
+    python -m grasptrajopt_tpu_torch.e2e [--device cuda|cpu] [--batch 16] [--reps 3]
+        [--ik_iterations 24] [--coherence 0] [--rescue_k 1]
+
+runs the phases on the synthetic arm (float32, 100 points per link, its
+gripper model), once to warm up and `reps` times, and prints one JSON
+line: ms per object a phase of the fastest run (host clock around
+synchronized phases), the rescues applied and the gates.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -52,6 +80,7 @@ import torch
 from grasptrajopt_tpu_torch.convert import scene_sets_from_numpy
 from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import (
+    DepthPointCloud,
     TwoCostFields,
     build_two_cost_fields,
     first_true_indices,
@@ -59,6 +88,7 @@ from grasptrajopt_tpu_torch.fields.depth_point_cloud import (
 )
 from grasptrajopt_tpu_torch.fields.scene_points import scene_point_sets_from_depth
 from grasptrajopt_tpu_torch.ops import interp, nn
+from grasptrajopt_tpu_torch.planning.evaluate import check_plan_collision
 from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
@@ -74,7 +104,8 @@ from grasptrajopt_tpu_torch.testing import (
 
 @dataclass(frozen=True)
 class SliceConfig:
-    """The perception-to-plan path at the JAX benchmark's panda flavor."""
+    """The perception-to-plan path at bench_e2e.py's defaults for an arm of
+    the panda's flavour (`bench_e2e.py:47-100`)."""
 
     batch: int = 16  # objects
     goal_capacity: int = 32  # grasps per object
@@ -87,7 +118,13 @@ class SliceConfig:
     capacity_obstacle: int = 12288
     capacity_target: int = 2048
     filter_standoff: float = -0.01  # pre-filter pose: grasp @ standoff(-1 cm)
-    ik_iterations: int = 50
+    ik_iterations: int = 24
+    ik_seeds: int = 8  # the start pose and 7 random restarts a goal
+    ik_seed: int = 0  # the restarts' generator seed
+    rank_t_stride: int = 4  # warm-start ranking: every 4th step ...
+    rank_p_stride: int = 4  # ... and every 4th body point
+    goal_coherence: float = 0.0  # 0: the plain masked argmin of the goal set
+    rescue_k: int = 1  # objects re-solved goal by goal (0: no rescue)
     T: int = 50
     plan_iterations: int = 3
     coarse_iterations: int = 2
@@ -159,26 +196,31 @@ def collect_observations(cfg: SliceConfig) -> Observations:
     )
 
 
+def goal_errors(robot, link_ee, Q_full, tf_goal):
+    """(d (B, G) m, rot (B, G) deg): each problem's final end-effector pose
+    against each of its goals. Q_full (B, T, ndof); tf_goal (B, G, 4, 4)
+    base frame."""
+    T_end = robot.get_global_link_transform(link_ee, Q_full[:, -1])
+    d = torch.linalg.vector_norm(tf_goal[..., :3, 3] - T_end[:, None, :3, 3], dim=-1)
+    rot = qangle_deg(r2quat(tf_goal[..., :3, :3]), r2quat(T_end[:, None, :3, :3]))
+    return d, rot
+
+
+def reach_error(robot, link_ee, Q_full, tf_goal, goal_mask):
+    """(B,) each problem's best d + 2e-3 x rot over its kept goals (the
+    rescue's selection metric)."""
+    d, rot = goal_errors(robot, link_ee, Q_full, tf_goal)
+    return torch.amin(torch.where(goal_mask, d + 2e-3 * rot, torch.full_like(d, float("inf"))), dim=1)
+
+
 def _reached(robot, link_ee, Q_full, tf_goal, goal_mask):
     """Per problem, whether its final pose reaches one of its kept goals
     within the IK gates (1 cm / 5 deg) and within the plan gates (2 cm /
     10 deg). Q_full (B, T, ndof); tf_goal (B, G, 4, 4) base frame."""
-    T_end = robot.get_global_link_transform(link_ee, Q_full[:, -1])
-    d = torch.linalg.vector_norm(tf_goal[..., :3, 3] - T_end[:, None, :3, 3], dim=-1)
-    rot = qangle_deg(r2quat(tf_goal[..., :3, :3]), r2quat(T_end[:, None, :3, :3]))
+    d, rot = goal_errors(robot, link_ee, Q_full, tf_goal)
     strict = ((d < 0.01) & (rot < 5.0) & goal_mask).any(dim=1)
     loose = ((d < 0.02) & (rot < 10.0) & goal_mask).any(dim=1)
     return strict, loose
-
-
-def reach_fractions(robot, link_ee, Q_full, tf_goal, goal_mask) -> Dict[str, float]:
-    """Share of objects whose final pose reaches one of their kept goals
-    under the IK gates and the plan gates (see `_reached`)."""
-    strict, loose = _reached(robot, link_ee, Q_full, tf_goal, goal_mask)
-    return {
-        "reached_frac_ik_gates": float(strict.float().mean()),
-        "reached_frac_plan_gates": float(loose.float().mean()),
-    }
 
 
 def pergoal_reach_fractions(robot, link_ee, Q_full, tf_goal, n_goals) -> Dict[str, float]:
@@ -203,8 +245,8 @@ def _sync(device: torch.device) -> None:
 
 
 class PerceptionToPlan:
-    """The three phases on one device, for the synthetic arm `synth7` and
-    its gripper model (testing.make_synthetic_gripper)."""
+    """The phases on one device, for the synthetic arm `synth7` and its
+    gripper model (testing.make_synthetic_gripper)."""
 
     def __init__(self, robot: GTORobotModel, gripper: GTORobotModel, cfg: SliceConfig):
         self.robot = robot
@@ -216,15 +258,24 @@ class PerceptionToPlan:
         pts = gripper.compute_fk_surface_points(SYNTH_EVAL_CONFIG["gripper_open_offsets"])
         self.filter_points = torch.as_tensor(pts, dtype=dt, device=dev)
         self.filter_offset = standoff(cfg.filter_standoff, cfg.axis_standoff, dt, dev)
-        self.ik = IKSolver(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, iterations=cfg.ik_iterations)
+        self.ik = IKSolver(
+            robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, collision_avoidance=False,
+            iterations=cfg.ik_iterations, num_seeds=cfg.ik_seeds,
+        )
         self.planner = GTOPlanner(
             robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER,
             standoff_distance=cfg.standoff_distance, iterations=cfg.plan_iterations,
             T=cfg.T, single_pass=True, coarse_iterations=cfg.coarse_iterations,
             final_trust=cfg.final_trust, sdf_epsilon=cfg.field_epsilon,
+            rank_t_stride=cfg.rank_t_stride, rank_p_stride=cfg.rank_p_stride,
+            goal_coherence=cfg.goal_coherence,
         )
         self.solvers = self.planner.setup_optimization(
             goal_size=cfg.goal_capacity, use_standoff=True, axis_standoff=cfg.axis_standoff
+        )
+        # the rescue's single-goal problems
+        self.solvers1 = self.planner.setup_optimization(
+            goal_size=1, use_standoff=True, axis_standoff=cfg.axis_standoff
         )
         self.exact_planner = GTOPlanner(
             robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, obstacle_mode="points", single_pass=True,
@@ -279,21 +330,31 @@ class PerceptionToPlan:
         return tables, base, keep, two
 
     def ik_screen(self, x: Dict[str, torch.Tensor]):
-        """Phase 2: (X0 (B, T-2, n_opt), found (B, G), err_pos, err_rot,
-        q_sols (B, G, ndof))."""
-        robot = self.robot
+        """Phase 2: (found (B, G), err_pos, err_rot, q_sols (B, G, ndof))."""
         B, G = x["tf_goal"].shape[:2]
-        q, err_pos, err_rot = self.ik.solve_ik_batch(self.qc, x["tf_goal"].reshape(B * G, 4, 4))
+        q, err_pos, err_rot, _ = self.ik.solve_ik_batch(
+            self.qc, x["tf_goal"].reshape(B * G, 4, 4), multistart=True, seed=self.cfg.ik_seed
+        )
         err_pos, err_rot = err_pos.reshape(B, G), err_rot.reshape(B, G)
         found = (err_pos < 0.01) & (err_rot < 5.0)
-        q_sols = q.reshape(B, G, -1)
-        warm = torch.argmin(err_pos + 2e-3 * err_rot, dim=1)
-        q_best = q_sols[torch.arange(B, device=q.device), warm]
-        X0 = robot.extract_optimized_dimensions(interpolate_waypoints(self.qc, q_best, self.cfg.T - 2))
-        return X0, found, err_pos, err_rot, q_sols
+        return found, err_pos, err_rot, q.reshape(B, G, -1)
 
-    def plan(self, x, X0, tables, base, goal_mask):
-        """Phase 3: (Q (B, T, n_opt), cost (B,), aux)."""
+    def rank(self, x, q_sols, found, f_obs):
+        """Phase 3: every IK solution's seed trajectory (B, G, T, ndof),
+        scored on each object's target-free field f_obs (B, S) by
+        `rank_seed_scores` (goals the screen missed at inf) and picked by
+        `rank_pick`. Returns (X0 (B, T-2, n_opt), seed_goal (B,))."""
+        robot, planner = self.robot, self.planner
+        B = q_sols.shape[0]
+        seeds = planner._seed_trajectories(self.qc, q_sols)
+        costs, dists = planner.rank_seed_scores(seeds, f_obs, x["base_position"])
+        costs = torch.where(found, costs, torch.full_like(costs, float("inf")))
+        seed_goal = planner.rank_pick(costs, dists)
+        Q0 = seeds[torch.arange(B, device=seeds.device), seed_goal]
+        return robot.extract_optimized_dimensions(Q0[:, 2:]), seed_goal
+
+    def plan(self, x, X0, tables, base, goal_mask, seed_goal):
+        """Phase 4: (Q (B, T, n_opt), cost (B,), aux)."""
         robot = self.robot
         B = X0.shape[0]
         params = {
@@ -303,32 +364,120 @@ class PerceptionToPlan:
             "base_position": x["base_position"].expand(B, 3),
             "field_base": base,
         }
+        if self.cfg.goal_coherence > 0:
+            params["goal_seed"] = seed_goal
         qc_opt = robot.extract_optimized_dimensions(self.qc).expand(B, -1)
         return self.solvers.solve_batch_stacked(qc_opt, X0, params, {"packed_fields": tables})
 
+    def full_q(self, Q):
+        """Full-q plans (..., T, ndof) of optimized-joint plans Q."""
+        return self.robot.assemble_q(Q, self.robot.extract_parameter_dimensions(self.qc))
+
+    def rescue(self, x, Q, tables, base, goal_mask, q_sols):
+        """Phase 5: the rescue_k objects of worst reach error each have all
+        their goal slots re-solved as single-goal problems (from each slot's
+        IK solution, interpolated from qc), in one batch; each keeps its
+        best per-goal plan (reach error against its own goal, slots outside
+        the goal mask at inf) where that beats the goal-set plan. Returns
+        (Q (B, T, n_opt), worst (K,), better (K,) bool)."""
+        robot, cfg = self.robot, self.cfg
+        K, G, T = cfg.rescue_k, x["tf_goal"].shape[1], cfg.T
+        dev = Q.device
+        err0 = reach_error(robot, self.link_ee, self.full_q(Q), x["tf_goal"], goal_mask)
+        worst = torch.argsort(-err0, stable=True)[:K]
+        tfk = x["tf_goal"][worst].reshape(K * G, 1, 4, 4)
+        X0k = robot.extract_optimized_dimensions(
+            interpolate_waypoints(self.qc, q_sols[worst].reshape(K * G, -1), T)[:, 2:]
+        )
+        params = {
+            "q_param": robot.extract_parameter_dimensions(self.qc).expand(K * G, -1),
+            "tf_goal": tfk,
+            "goal_mask": torch.ones((K * G, 1), dtype=torch.bool, device=dev),
+            "base_position": x["base_position"].expand(K * G, 3),
+            "field_base": base[worst].repeat_interleave(G),
+        }
+        qc_opt = robot.extract_optimized_dimensions(self.qc).expand(K * G, -1)
+        Qr, _, _ = self.solvers1.solve_batch_stacked(qc_opt, X0k, params, {"packed_fields": tables})
+        d, rot = goal_errors(robot, self.link_ee, self.full_q(Qr), tfk)  # each against its own goal
+        errr = torch.where(goal_mask[worst].reshape(K * G), d[:, 0] + 2e-3 * rot[:, 0],
+                           torch.full_like(d[:, 0], float("inf"))).reshape(K, G)
+        bestg = torch.argmin(errr, dim=1)
+        better = errr[torch.arange(K, device=dev), bestg] < err0[worst]
+        Q_repl = Qr.reshape(K, G, T, -1)[torch.arange(K, device=dev), bestg]
+        Q = Q.clone()
+        Q[worst] = torch.where(better[:, None, None], Q_repl, Q[worst])
+        return Q, worst, better
+
     def run(self, obs: Observations) -> Dict:
-        """All three phases; host-clock seconds per phase after a device
+        """The five phases; host-clock seconds per phase after a device
         synchronize."""
         dev = self.robot.device
         x = self.tensors(obs)
+        marks = [time.perf_counter()]
+
+        def mark():
+            _sync(dev)
+            marks.append(time.perf_counter())
+
         _sync(dev)
-        t0 = time.perf_counter()
+        marks[0] = time.perf_counter()
         tables, base, keep, two = self.fields(x)
-        _sync(dev)
-        t1 = time.perf_counter()
-        X0, found, err_pos, err_rot, q_sols = self.ik_screen(x)
-        _sync(dev)
-        t2 = time.perf_counter()
+        mark()
+        found, err_pos, err_rot, q_sols = self.ik_screen(x)
+        mark()
+        X0, seed_goal = self.rank(x, q_sols, found, two.f_obs)
+        mark()
         goal_mask = keep & found
         goal_mask = torch.where(goal_mask.any(dim=1, keepdim=True), goal_mask, torch.ones_like(goal_mask))
-        Q, cost, aux = self.plan(x, X0, tables, base, goal_mask)
-        _sync(dev)
-        t3 = time.perf_counter()
+        Q_plan, cost, aux = self.plan(x, X0, tables, base, goal_mask, seed_goal)
+        mark()
+        if self.cfg.rescue_k:
+            Q, worst, rescued = self.rescue(x, Q_plan, tables, base, goal_mask, q_sols)
+        else:
+            Q = Q_plan
+            worst = rescued = torch.zeros((0,), dtype=torch.bool, device=dev)
+        mark()
+        seconds = dict(zip(("fields", "ik", "rank", "plan", "rescue"), np.diff(marks).tolist()))
         return {
             "inputs": x, "fields": two, "tables": tables, "field_base": base, "keep": keep,
-            "X0": X0, "found": found, "err_pos": err_pos, "err_rot": err_rot, "q_sols": q_sols,
-            "goal_mask": goal_mask, "Q": Q, "cost": cost, "aux": aux,
-            "seconds": {"fields": t1 - t0, "ik": t2 - t1, "plan": t3 - t2},
+            "X0": X0, "seed_goal": seed_goal, "found": found, "err_pos": err_pos, "err_rot": err_rot,
+            "q_sols": q_sols, "goal_mask": goal_mask, "Q_plan": Q_plan, "Q": Q, "cost": cost, "aux": aux,
+            "worst": worst, "rescued": rescued, "seconds": seconds,
+        }
+
+    def gates(self, obs: Observations, out: Dict) -> Dict[str, float]:
+        """bench_e2e.py's gates of the final plans (untimed): reach within
+        the IK gates (1 cm / 5 deg) and the plan gates (2 cm / 10 deg) over
+        the kept goals; the errors at each object's best goal; the share of
+        plans whose replay collides with the object's obstacle cloud (more
+        than 5 body points inside at a step beyond those inside at step 0;
+        planning/evaluate.py, one K1 launch an object); the grasps kept and
+        the IK found rates."""
+        robot, cfg = self.robot, self.cfg
+        x, gm = out["inputs"], out["goal_mask"]
+        Q_full = self.full_q(out["Q"])
+        strict, loose = _reached(robot, self.link_ee, Q_full, x["tf_goal"], gm)
+        d, rot = goal_errors(robot, self.link_ee, Q_full, x["tf_goal"])
+        best = torch.argmin(torch.where(gm, d + 2e-3 * rot, torch.full_like(d, float("inf"))), dim=1)
+        rows = torch.arange(d.shape[0], device=d.device)
+        err_pos, err_rot = d[rows, best].cpu().numpy(), rot[rows, best].cpu().numpy()
+        plans = Q_full.transpose(1, 2).cpu().numpy()  # (B, ndof, T)
+        collisions = []
+        for b in range(plans.shape[0]):
+            d_obs = np.where(obs.target_mask[b], cfg.depth_threshold, obs.depth[b])
+            cloud = DepthPointCloud(d_obs, obs.K, obs.cam_pose[b], obs.target_mask[b],
+                                    threshold=cfg.depth_threshold, device=robot.device)
+            collisions.append(check_plan_collision(robot, plans[b], cloud, obs.base_position)[0])
+        return {
+            "reached_frac_ik_gates": float(strict.double().mean()),
+            "reached_frac_plan_gates": float(loose.double().mean()),
+            "collision_frac": float(np.mean(collisions)),
+            "err_pos_median": float(np.median(err_pos)),
+            "err_pos_p90": float(np.quantile(err_pos, 0.9)),
+            "err_rot_median_deg": float(np.median(err_rot)),
+            "err_rot_p90_deg": float(np.quantile(err_rot, 0.9)),
+            "mean_grasps_kept": float(out["keep"].double().mean()),
+            "mean_ik_found": float(out["found"].double().mean()),
         }
 
     def scene_sets(self, obs: Observations) -> Dict[str, torch.Tensor]:
@@ -413,3 +562,43 @@ class PerceptionToPlan:
             "seconds": {"scene_sets": t1 - t0, "exact": t2 - t1, "rescue": t3 - t2, "clearance": t4 - t3},
             "field_lookup_launches": {"exact": k4_exact, "rescue": k4_rescue},
         }
+
+
+def main(argv=None) -> Dict:
+    ap = argparse.ArgumentParser(description="bench_e2e.py's phases on the port")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=SliceConfig.batch)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--ik_iterations", type=int, default=SliceConfig.ik_iterations)
+    ap.add_argument("--coherence", type=float, default=SliceConfig.goal_coherence)
+    ap.add_argument("--rescue_k", type=int, default=SliceConfig.rescue_k)
+    args = ap.parse_args(argv)
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gripper, make_synthetic_gto_robot
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        SliceConfig(), batch=args.batch, ik_iterations=args.ik_iterations, goal_coherence=args.coherence,
+        rescue_k=args.rescue_k,
+    )
+    robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
+    gripper = make_synthetic_gripper(device=dev, dtype=torch.float32, points_per_link=100)
+    path = PerceptionToPlan(robot, gripper, cfg)
+    obs = collect_observations(cfg)
+    path.run(obs)  # warm-up
+    runs = [path.run(obs) for _ in range(args.reps)]
+    best = min(runs, key=lambda r: sum(r["seconds"].values()))
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "config": dataclasses.asdict(cfg),
+        "phase_ms_per_object": {k: 1e3 * v / cfg.batch for k, v in best["seconds"].items()},
+        "objects_per_s": cfg.batch / sum(best["seconds"].values()),
+        "rescue": {"k": cfg.rescue_k, "applied": int(best["rescued"].sum())},
+        "gates": path.gates(obs, best),
+    }
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))

@@ -227,6 +227,15 @@ class DepthPointCloud:
         """Compacted (N, 3) world points, host numpy."""
         return self.points_padded[self.valid].cpu().numpy()
 
+    def get_random_surface_points(self, count: int, generator=None, index=None) -> np.ndarray:
+        """`count` cloud points drawn uniformly with replacement, host numpy
+        (count, 3): the draw comes from `generator` (a CPU torch.Generator)
+        or is given as `index` (count,) into `points`."""
+        pts = self.points
+        if index is None:
+            index = torch.randint(0, pts.shape[0], (count,), generator=generator).numpy()
+        return pts[np.asarray(index)]
+
     def _queries(self, query_points):
         return torch.as_tensor(query_points, dtype=self.dtype, device=self.device)
 
@@ -243,6 +252,12 @@ class DepthPointCloud:
         q = self._queries(query_points)
         d = torch.sqrt(min_sqdist_d2(q, self.points_padded[None], self.valid[None])[0])
         return torch.where(self.is_outside(q), d, -d)
+
+    def get_sdf_in_batches(self, query_points, batch_size: int = 1_000_000):
+        """get_sdf over consecutive chunks of `batch_size` queries (one K1
+        launch each on the card), concatenated."""
+        q = self._queries(query_points)
+        return torch.cat([self.get_sdf(c) for c in torch.split(q, batch_size)]) if len(q) else self.get_sdf(q)
 
     def get_sdf_cost(self, query_points, epsilon: float = 0.02, w_inside: float = 1.0):
         """The shaped obstacle cost at query points (the planner's field

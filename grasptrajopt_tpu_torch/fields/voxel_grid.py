@@ -18,7 +18,9 @@ import torch
 from grasptrajopt_tpu_torch.ops.interp import (
     field_lookup_nearest,
     field_lookup_trilinear,
+    field_lookup_trilinear_packed,
     pack_corners,
+    points_to_offsets,
 )
 
 DEFAULT_MARGIN = 0.4
@@ -83,6 +85,13 @@ class VoxelGrid:
     def origin_tensor(self, dtype, device) -> torch.Tensor:
         return torch.tensor(self.origin, dtype=dtype, device=device)
 
+    def offsets(self, points):
+        """Flat row-major cell offsets (...,) long of (..., 3) points
+        (floor + clamp)."""
+        return points_to_offsets(
+            points, self.origin_tensor(points.dtype, points.device), self.shape, self.resolution
+        )
+
     def lookup_nearest(self, field_flat, points):
         return field_lookup_nearest(
             field_flat, points, self.origin_tensor(points.dtype, points.device),
@@ -103,6 +112,16 @@ class VoxelGrid:
             return self.lookup_nearest(field_flat, points)
         raise ValueError(f"unknown interp mode '{interp}'")
 
-    def pack(self, field_flat):
-        """(..., size) fields -> (..., size, 8) trilinear corner rows."""
-        return pack_corners(field_flat, self.shape)
+    def pack(self, field_flat, dtype=None):
+        """(..., size) fields -> (..., size, 8) trilinear corner rows, cast
+        to `dtype` (e.g. torch.bfloat16: half the bytes a lookup reads)
+        after the corners are packed, as the JAX package casts."""
+        packed = pack_corners(field_flat, self.shape)
+        return packed if dtype is None else packed.to(dtype)
+
+    def lookup_packed(self, packed, points, row_offset=0):
+        """Trilinear values at (..., 3) points from a `pack` table."""
+        return field_lookup_trilinear_packed(
+            packed, points, self.origin_tensor(points.dtype, points.device),
+            self.shape, self.resolution, row_offset=row_offset,
+        )

@@ -1,8 +1,10 @@
 """RobotModel: batched FK with the optimized / parameter joint split.
 
-Port of grasptrajopt_tpu/models/robot.py (the parts the perception-to-plan
-path uses): joint bookkeeping, `extract_*`, `assemble_q`, the limit arrays,
-`fk_all`, `fk_components`, `frame_matrix` and `get_global_link_transform`.
+Port of grasptrajopt_tpu/models/robot.py (all but the dynamics): joint
+bookkeeping, `extract_*`, `assemble_q`, the limit arrays, `fk_all`,
+`fk_components`, `frame_matrix`, the link transforms, positions,
+rotations, quaternions and RPY angles, the geometric, linear, angular and
+analytical Jacobians, `get_link_axis` and `get_random_joint_positions`.
 The model holds its constants on one explicit device in one dtype; every
 method expects tensors of that dtype on that device.
 """
@@ -13,9 +15,11 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+from torch.func import jacfwd
 
-from grasptrajopt_tpu_torch.models.kinematics import KinematicModel
+from grasptrajopt_tpu_torch.models.kinematics import JOINT_REVOLUTE, KinematicModel
 from grasptrajopt_tpu_torch.models.urdf import Urdf
+from grasptrajopt_tpu_torch.spatial import invt, r2quat, r2rpy
 
 _BIG = 1e9
 
@@ -170,6 +174,103 @@ class RobotModel:
     def get_global_link_transform(self, link: str, q):
         """T_world_link for q (..., ndof) -> (..., 4, 4)."""
         return self.fk_all(q)[..., self.frame_of(link), :, :]
+
+    def get_global_link_transform_function(self, link: str, n: int = 1):
+        """fn(Q): Q (ndof,) -> (4, 4), or Q (ndof, n) columns -> (n, 4, 4)."""
+        f = self.frame_of(link)
+
+        def fn(Q):
+            Q = torch.as_tensor(Q, dtype=self.dtype, device=self.device)
+            return self.fk_all(Q if Q.dim() == 1 else Q.T)[..., f, :, :]
+
+        return fn
+
+    def get_link_transform(self, link: str, q, base_link: str):
+        """T_baselink_link = inv(T_world_base) @ T_world_link, q (..., ndof)."""
+        frames = self.fk_all(q)
+        return invt(frames[..., self.frame_of(base_link), :, :]) @ frames[..., self.frame_of(link), :, :]
+
+    def get_link_transform_function(self, link: str, base_link: str, n: int = 1):
+        """fn(Q) of get_link_transform, Q (ndof,) or (ndof, n) columns."""
+
+        def fn(Q):
+            Q = torch.as_tensor(Q, dtype=self.dtype, device=self.device)
+            return self.get_link_transform(link, Q if Q.dim() == 1 else Q.T, base_link)
+
+        return fn
+
+    def get_global_link_position(self, link: str, q):
+        return self.get_global_link_transform(link, q)[..., :3, 3]
+
+    def get_global_link_rotation(self, link: str, q):
+        return self.get_global_link_transform(link, q)[..., :3, :3]
+
+    def get_global_link_quaternion(self, link: str, q):
+        """xyzw quaternion of the link's world rotation."""
+        return r2quat(self.get_global_link_rotation(link, q))
+
+    def get_global_link_rpy(self, link: str, q):
+        return r2rpy(self.get_global_link_rotation(link, q))
+
+    # -- Jacobians --------------------------------------------------------------
+
+    def get_global_link_geometric_jacobian(self, link: str, q):
+        """Geometric Jacobian (..., 6, ndof), rows [v; w] in the world frame:
+        for each actuated joint on the link's chain, v = z x (p_link -
+        p_joint), w = z (revolute), or v = z, w = 0 (prismatic); zero
+        columns for the other joints."""
+        frames = self.fk_all(q)
+        kin = self.kinematics
+        f_link = self.frame_of(link)
+        p_link = frames[..., f_link, :3, 3]
+        zero = torch.zeros(q.shape[:-1] + (6,), dtype=q.dtype, device=q.device)
+        cols = [zero] * self.ndof
+        f = f_link
+        while f != 0:
+            jidx = int(kin.joint_index[f])
+            if jidx >= 0:
+                axis = torch.as_tensor(kin.axis[f], dtype=q.dtype, device=q.device)
+                z = frames[..., f, :3, :3] @ axis
+                if kin.joint_type[f] == JOINT_REVOLUTE:
+                    cols[jidx] = torch.cat([torch.linalg.cross(z, p_link - frames[..., f, :3, 3]), z], dim=-1)
+                else:
+                    cols[jidx] = torch.cat([z, torch.zeros_like(z)], dim=-1)
+            f = int(kin.parent[f])
+        return torch.stack(cols, dim=-1)
+
+    def get_global_link_linear_jacobian(self, link: str, q):
+        return self.get_global_link_geometric_jacobian(link, q)[..., :3, :]
+
+    def get_global_link_angular_geometric_jacobian(self, link: str, q):
+        return self.get_global_link_geometric_jacobian(link, q)[..., 3:, :]
+
+    def get_global_link_analytical_jacobian(self, link: str, q):
+        """d[p; rpy]/dq (6, ndof) at one configuration q (ndof,), by
+        forward-mode autodiff."""
+
+        def pose(qq):
+            T = self.get_global_link_transform(link, qq)
+            return torch.cat([T[:3, 3], r2rpy(T[:3, :3])])
+
+        return jacfwd(pose)(q)
+
+    def get_link_axis(self, link: str, q, axis: str):
+        """World direction (..., 3) of one of the link frame's axes."""
+        return self.get_global_link_rotation(link, q)[..., :, {"x": 0, "y": 1, "z": 2}[axis]]
+
+    # -- sampling -------------------------------------------------------------
+
+    def get_random_joint_positions(self, generator: torch.Generator, n: int = 1, lo=None, hi=None, u=None):
+        """(n, ndof) configurations uniform within the limits (or lo / hi),
+        clipped to +-10 rad where they are unbounded. The draw comes from
+        `generator` on the model's device, or is given as `u` (n, ndof) in
+        [0, 1)."""
+        lo = np.clip(self.lower_actuated_joint_limits if lo is None else lo, -10.0, 10.0)
+        hi = np.clip(self.upper_actuated_joint_limits if hi is None else hi, -10.0, 10.0)
+        if u is None:
+            u = torch.rand((n, self.ndof), generator=generator, dtype=self.dtype, device=self.device)
+        lo_t = torch.as_tensor(lo, dtype=self.dtype, device=self.device)
+        return lo_t + u * torch.as_tensor(hi - lo, dtype=self.dtype, device=self.device)
 
     @property
     def link_names(self) -> List[str]:

@@ -8,7 +8,8 @@ problem adds its own row base to the offsets, so every lookup is a single
 plain gather.
 
 K4 (`field_lookup_packed_soa_grad`): the packed-row lookup that every
-field-mode plan iteration runs, value and gradient in one pass. On the card
+field-mode plan iteration and the IK screen's collision term run, value
+and gradient in one pass, from float32 or bf16 corner rows. On the card
 this is the hand-written CUDA kernel `csrc/field_lookup.cu`; its plain-torch
 version `field_lookup_packed_soa_grad_reference` sits beside it. The
 wrapper takes the plain version ONLY for tensors on the CPU; a CUDA tensor
@@ -111,7 +112,7 @@ def field_lookup_trilinear_packed(packed, points, origin, shape, resolution, row
     field slab of a stacked table."""
     base, frac = _base_and_frac(points, origin, shape, resolution)
     offs = base[..., 2] + shape[2] * (base[..., 1] + shape[1] * base[..., 0]) + row_offset
-    rows = packed[offs]  # (..., 8)
+    rows = packed[offs].to(points.dtype)  # (..., 8); bf16 tables upcast after the gather
     fx, fy, fz = frac.unbind(-1)
     wx = torch.stack([1 - fx, fx], dim=-1)
     wy = torch.stack([1 - fy, fy], dim=-1)
@@ -161,7 +162,8 @@ def field_lookup_packed_soa_grad_reference(
     packed, x, y, z, origin, shape, resolution, row_offset=0
 ):
     """Plain-torch K4: packed trilinear lookup returning (value, d/dx,
-    d/dy, d/dz) in closed form from one row gather per query. Outside the
+    d/dy, d/dz) in closed form from one row gather per query; a bf16 table's
+    rows are upcast to the points' dtype after the gather. Outside the
     grid the clamped fraction saturates and that axis's gradient is zero."""
     offs, rx, ry, rz, inv = _cell_and_frac(x, y, z, origin, shape, resolution)
     fx = torch.clamp(rx, 0.0, 1.0)
@@ -194,7 +196,7 @@ def _declare(lib):
     # int argument to 32 bits
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.gto_field_lookup.argtypes = [
-        p, p, p, ll, i, p, i, p, ll, f, f, f, f, i, i, i, p, p, p, p, p,
+        p, p, p, ll, i, p, i, p, ll, i, f, f, f, f, i, i, i, p, p, p, p, p,
     ]
     lib.gto_field_lookup.restype = ctypes.c_int
     lib.gto_cuda_error_string.argtypes = [ctypes.c_int]
@@ -248,10 +250,12 @@ def field_lookup_packed_soa_grad(
     tensor (host floats avoid a device read on the card).
 
     CPU tensors take the plain version. On the card, `packed` must be a
-    contiguous float32 (R, 8) table and x / y / z float32 views with one
-    common stride between consecutive points (SoA tensors, or the three
-    coordinate views of a contiguous (..., 3) tensor); that launches
-    `csrc/field_lookup.cu` once. Anything else raises.
+    contiguous float32 or bfloat16 (R, 8) table, 16-byte aligned (a bf16
+    row is read as one 16-byte load and upcast to float32), and x / y / z
+    float32 views with one common stride between consecutive points (SoA
+    tensors, or the three coordinate views of a contiguous (..., 3)
+    tensor); that launches `csrc/field_lookup.cu` once. Anything else
+    raises.
     """
     global field_lookup_launches
     tensors = (packed, x, y, z)
@@ -262,8 +266,8 @@ def field_lookup_packed_soa_grad(
     dev = x.device
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError(f"K4 needs its tensors on one CUDA device, got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"K4 takes float32, got {[t.dtype for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in (x, y, z)) or packed.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K4 takes float32 points and a float32 or bfloat16 table, got {[t.dtype for t in tensors]}")
     if packed.dim() != 2 or packed.shape[1] != 8 or not packed.is_contiguous():
         raise ValueError(f"K4 takes a contiguous (R, 8) table, got {tuple(packed.shape)}")
     if packed.data_ptr() % 16:
@@ -289,7 +293,7 @@ def field_lookup_packed_soa_grad(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gto_field_lookup(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), stride, n, row_base.data_ptr(), rb_div,
-            packed.data_ptr(), packed.shape[0], ox, oy, oz, inv,
+            packed.data_ptr(), packed.shape[0], int(packed.dtype == torch.bfloat16), ox, oy, oz, inv,
             int(shape[0]), int(shape[1]), int(shape[2]),
             *(o.data_ptr() for o in outs), stream,
         )

@@ -1,20 +1,25 @@
 """Dense projected Levenberg-Marquardt with box constraints, batch-first.
 
-Port of grasptrajopt_tpu/opt/lm.py `make_box_lm_solver` for residual-only
-problems (no `value_fn` term):
+Port of grasptrajopt_tpu/opt/lm.py `make_box_lm_solver`:
 
-    min_x ||r(x, p)||^2   s.t.  lo <= x <= hi
+    min_x ||r(x, p)||^2 + v(x, p)   s.t.  lo <= x <= hi
 
-Gauss-Newton Hessian, Marquardt diagonal damping adapted by a gain ratio,
-trial steps at several scales projected onto the box; the best candidate
-is accepted when it lowers the cost. The residual is written for ONE
-problem and mapped over the batch with `torch.func.vmap`; its Jacobian
+Gauss-Newton Hessian from r, Marquardt diagonal damping adapted by a gain
+ratio, trial steps at several scales projected onto the box; the best
+candidate is accepted when it lowers the cost. The residual is written for
+ONE problem and mapped over the batch with `torch.func.vmap`; its Jacobian
 comes from `jacfwd(has_aux=True)`.
+
+The optional value term v (the IK screen's obstacle cost, linear in field
+values, so it adds gradient but no Gauss-Newton curvature) is batch-level
+instead: a pair of functions called outside the torch.func transforms, so
+that a kernel (K4's field lookup) can evaluate it on the card. With the
+convention C = sum r^2 + v and g = grad C / 2: g = J^T r + dv / 2.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import jacfwd, vmap
@@ -38,14 +43,25 @@ class LMConfig(NamedTuple):
     alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1, 0.03)
 
 
-def make_box_lm_solver(residual_fn: Callable, config: LMConfig = LMConfig()):
-    """Build `solve(x0 (B, n), lo (n,), hi (n,), params) -> (x, cost, aux)`.
+def make_box_lm_solver(
+    residual_fn: Callable,
+    config: LMConfig = LMConfig(),
+    value_term: Optional[Tuple[Callable, Callable]] = None,
+):
+    """Build `solve(x0 (B, n), lo (n,), hi (n,), params, shared=None) ->
+    (x, cost, aux)`.
 
     residual_fn(x (n,), params_b) -> (R,) for ONE problem; `params` holds
-    per-problem tensors with leading dim B.
+    per-problem tensors with leading dim B, `shared` tensors common to the
+    batch (e.g. a packed field table).
+
+    value_term = (value, value_and_grad), batch-level:
+      value(x (B, ..., n), params, shared) -> (B, ...): the term at each
+        problem's points (one per problem, or its (B, A) trial candidates);
+      value_and_grad(x (B, n), params, shared) -> ((B,), (B, n)).
     """
 
-    def solve(x0, lo, hi, params):
+    def solve(x0, lo, hi, params, shared=None):
         x = torch.minimum(torch.maximum(x0, lo), hi)
         B, n = x.shape
         eye = torch.eye(n, dtype=x.dtype, device=x.device)
@@ -64,11 +80,18 @@ def make_box_lm_solver(residual_fn: Callable, config: LMConfig = LMConfig()):
 
         cand_cost = vmap(vmap(cost_one, in_dims=(0, None)), in_dims=(0, 0))
         c = vmap(cost_one)(x, params)
+        if value_term is not None:
+            value, value_and_grad = value_term
+            c = c + value(x, params, shared)
         lam = torch.full((B,), config.lambda_init, dtype=x.dtype, device=x.device)
         for _ in range(config.iterations):
             J, r = vmap(lin)(x, params)  # (B, R, n), (B, R)
             c_now = torch.sum(r * r, dim=-1)
             g = torch.einsum("bri,br->bi", J, r)
+            if value_term is not None:
+                v, dv = value_and_grad(x, params, shared)
+                c_now = c_now + v
+                g = g + 0.5 * dv
             H = torch.einsum("bri,brj->bij", J, J)
             scale = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=config.jitter)
             A = H + lam[:, None, None] * torch.diag_embed(scale) + config.jitter * eye
@@ -81,6 +104,8 @@ def make_box_lm_solver(residual_fn: Callable, config: LMConfig = LMConfig()):
                 torch.maximum(x[:, None] + alphas[None, :, None] * dx[:, None], lo), hi
             )  # (B, A, n)
             cand_costs = cand_cost(cands, params)  # (B, A)
+            if value_term is not None:
+                cand_costs = cand_costs + value(cands, params, shared)
             best = torch.argmin(cand_costs, dim=1)
             x_trial = cands[torch.arange(B, device=x.device), best]
             c_trial = cand_costs[torch.arange(B, device=x.device), best]

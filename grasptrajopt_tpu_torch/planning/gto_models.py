@@ -6,7 +6,9 @@ crc32 of the link name, so both packages get the same points bit for
 bit), visual origins folded into link-frame points, `fk_surface_points`,
 `surface_points_soa` with a point stride, `compute_fk_surface_points`
 (host numpy points, the grasp pre-filter's gripper model),
-`get_standoff_pose`, and `setup_workspace_field` / `setup_points_field`.
+`compute_fk_link_surface_points`, `get_standoff_pose`,
+`setup_workspace_field` / `setup_points_field`, the grid's
+`points_to_offsets(_numpy)` and `compute_plan_cost`.
 """
 
 from __future__ import annotations
@@ -168,6 +170,20 @@ class GTORobotModel(RobotModel):
                for fidx, p in zip(self._surface_frame_idx, self._link_points_local)]
         return torch.cat(pts, dim=-2).cpu().numpy()
 
+    def visual_tf(self, link: str, q):
+        """World transform (..., 4, 4) of a link's visual frame."""
+        V = torch.as_tensor(self.visual_offsets[link], dtype=self.dtype, device=self.device)
+        return self.get_global_link_transform(link, q) @ V
+
+    def compute_fk_link_surface_points(self, q, name: str, tf_base=None):
+        """One link's surface points in the world frame (or in front of
+        `tf_base` (4, 4)) at configuration q (ndof,): host numpy (P, 3)."""
+        T = self.visual_tf(name, torch.as_tensor(q, dtype=self.dtype, device=self.device))
+        if tf_base is not None:
+            T = torch.as_tensor(tf_base, dtype=self.dtype, device=self.device) @ T
+        pts = torch.as_tensor(self.surface_points[name], dtype=self.dtype, device=self.device)
+        return transform_points(T, pts).cpu().numpy()
+
     @staticmethod
     def get_standoff_pose(offset: float, axis: str) -> np.ndarray:
         """float32 (4, 4): a translation by `offset` along the grasp
@@ -199,3 +215,20 @@ class GTORobotModel(RobotModel):
             np.asarray(points), margin=self.field_margin, resolution=self.grid_resolution
         )
         return self.grid
+
+    def points_to_offsets(self, points):
+        """Flat cell offsets of (..., 3) points on the robot's grid."""
+        return self.grid.offsets(points)
+
+    def points_to_offsets_numpy(self, points) -> np.ndarray:
+        return self.points_to_offsets(
+            torch.as_tensor(np.asarray(points), dtype=self.dtype, device=self.device)
+        ).cpu().numpy()
+
+    def compute_plan_cost(self, plan, sdf_cost, base_position):
+        """(cost, dist) floats of a plan (ndof, T): the summed floor-indexed
+        field values at its body points, and its start-to-end distance."""
+        plan = torch.as_tensor(plan, dtype=self.dtype, device=self.device)
+        pts = self.fk_surface_points(plan.T, torch.as_tensor(base_position, dtype=self.dtype, device=self.device))
+        vals = self.grid.lookup_nearest(torch.as_tensor(sdf_cost, dtype=self.dtype, device=self.device), pts)
+        return float(torch.sum(vals)), float(torch.linalg.vector_norm(plan[:, 0] - plan[:, -1]))

@@ -13,10 +13,14 @@ problem per grasp).
     standoff pose is matched at step T + standoff_offset;
   - obstacle cost sqrt(obstacle_weight) * shaped SDF values at every body
     surface point, the scene before the standoff step and the target-free
-    obstacle after it, from one of two sources (`obstacle_mode`):
+    obstacle after it, from one of two sources (`obstacle_mode`), or none
+    (`collision_avoidance=False`):
       'field':  trilinear lookups in one stacked (2S, 8) table per problem
                 (`field_base` selects the problem's slab of the batch
-                table);
+                table), float32 or, with `field_dtype=torch.bfloat16`,
+                bf16 rows (K4 upcasts them); `interp='nearest'` reads the
+                unpacked fields at the floor-indexed cell instead, with a
+                zero gradient;
       'points': the exact signed distance to voxel-downsampled scene
                 point sets with normals (kernel K2; the target set counts
                 where it is nearer during the standoff phase);
@@ -39,7 +43,7 @@ from torch.func import jacfwd, vmap
 
 from grasptrajopt_tpu_torch.convert import scene_sets_from_numpy
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import sdf_cost_shaping, sdf_cost_shaping_deriv
-from grasptrajopt_tpu_torch.ops.interp import field_lookup_packed_soa_grad
+from grasptrajopt_tpu_torch.ops.interp import field_lookup_packed_soa_grad, points_to_offsets
 from grasptrajopt_tpu_torch.ops.nn import signed_distance_with_dir
 from grasptrajopt_tpu_torch.opt.trajectory import TrajectoryConfig, make_trajectory_solver
 from grasptrajopt_tpu_torch.planning.utils import interpolate_waypoints
@@ -53,7 +57,8 @@ class PlannerSolvers(NamedTuple):
     (B, 3) and optionally goal_seed (B,).
 
     solve_batch_shared: one scene for the whole batch. params_shared holds
-    packed_fields (2S, 8) in field mode, and in points mode scene_points /
+    packed_fields (2S, 8) in field mode (`field_table`: (2S,) with
+    interp='nearest'; none without collision avoidance), and in points mode scene_points /
     scene_normals (1, K, 3) and target_points / target_normals (1, Kt, 3).
     solve_batch_stacked: per-problem scenes. params_per also holds
     field_base (B,), each problem's slab of packed_fields (B*2S, 8)
@@ -90,8 +95,18 @@ class GTOPlanner:
         rank_t_stride: int = 1,
         rank_p_stride: int = 1,
         goal_coherence: float = 0.0,
+        collision_avoidance: bool = True,
+        interp: str = "trilinear",
+        field_term: bool = True,
+        field_dtype=None,
     ):
-        """See the JAX package's GTOPlanner for each knob. lm_alphas: the
+        """See the JAX package's GTOPlanner for each knob. field_term: the
+        JAX package's whole-trajectory field term (True) or obstacle rows in
+        the per-step residual (False); their residuals and Jacobians are
+        equal in closed form, and here both are the whole-trajectory term,
+        so that the lookup stays one K4 launch a pass for the whole batch
+        (the per-step form would look up inside the torch.func transforms,
+        where no kernel can run). lm_alphas: the
         two-pass iteration's trial step scales (None: (1.0,)); single_pass:
         one residual/jac pass per LM iteration (coarse_iterations and
         final_trust need it; final_trust is dropped without it);
@@ -123,6 +138,12 @@ class GTOPlanner:
         self.rank_t_stride = int(rank_t_stride)
         self.rank_p_stride = int(rank_p_stride)
         self.goal_coherence = float(goal_coherence)
+        if interp not in ("trilinear", "nearest"):
+            raise ValueError(f"unknown interp mode '{interp}'")
+        self.collision_avoidance = bool(collision_avoidance)
+        self.interp = interp
+        self.field_term = bool(field_term)
+        self.field_dtype = field_dtype
         self.gripper_points = robot.gripper_points(link_gripper)
         self._solvers: Dict[tuple, PlannerSolvers] = {}
         self._last_rank_pick = None  # seed / goal index of the last ranked warm start
@@ -219,6 +240,21 @@ class GTOPlanner:
 
             return field_term_value, field_term_value_jac
 
+        def nearest_term_value(Q, step_aux, params, shared):
+            """interp='nearest': the unpacked fields (flat, the scene's
+            then the obstacle's, stacked like the packed table) at each
+            point's floor-indexed cell."""
+            Qf = robot.assemble_q(Q, params["q_param"][:, None, :])
+            x, y, z = robot.surface_points_soa(robot.fk_components(Qf), params["base_position"][:, None, :])
+            offs = points_to_offsets(
+                torch.stack([x, y, z], dim=-1), g.origin_tensor(x.dtype, x.device), g.shape, g.resolution
+            )
+            return sqrt_ow * shared["packed_fields"][offs + field_rows(params)].to(x.dtype)
+
+        def nearest_term_value_jac(Q, step_aux, params, shared):
+            r = nearest_term_value(Q, step_aux, params, shared)
+            return r, torch.zeros(r.shape + (Q.shape[-1],), dtype=r.dtype, device=r.device)
+
         # points mode: during the standoff phase the target's surface is an
         # obstacle too (the nearer of the two sets); the final approach
         # ignores the target
@@ -303,16 +339,23 @@ class GTOPlanner:
             **cfg_kwargs,
         )
         coarse = None
-        if self.coarse_iterations and (self.obstacle_mode == "points" or not self.single_pass):
+        trilinear_term = (
+            self.collision_avoidance and self.obstacle_mode == "field" and self.interp == "trilinear"
+        )
+        if self.coarse_iterations and not (trilinear_term and self.field_term and self.single_pass):
             raise NotImplementedError(
-                "coarse_iterations requires single_pass=True and the field obstacle term"
+                "coarse_iterations requires single_pass=True and the trilinear field obstacle term"
             )
-        if self.obstacle_mode == "points":
+        if not self.collision_avoidance:
+            traj_term = None
+        elif self.obstacle_mode == "points":
             traj_term = (obstacle_term_value, obstacle_term_value_jac)
-        else:
+        elif trilinear_term:
             traj_term = make_field_term()
             if self.coarse_iterations:
                 coarse = (self.coarse_iterations, make_field_term(self.coarse_stride))
+        else:
+            traj_term = (nearest_term_value, nearest_term_value_jac)
         solver = make_trajectory_solver(
             step_residual, cfg, pre_iteration=pre_iteration, traj_term=traj_term, coarse=coarse,
         )
@@ -325,14 +368,26 @@ class GTOPlanner:
         self._solvers[key] = PlannerSolvers(solve, solve)
         return self._solvers[key]
 
+    def field_table(self, sdf_cost_all, sdf_cost_obstacle):
+        """The field table the obstacle term reads, from (..., S) field
+        pairs: the corner rows of both fields (..., 2S, 8) in field_dtype,
+        or with interp='nearest' the fields themselves (..., 2S)."""
+        if self.interp == "nearest":
+            return torch.cat([sdf_cost_all, sdf_cost_obstacle], dim=-1)
+        g = self.robot.grid
+        return torch.cat(
+            [g.pack(sdf_cost_all, self.field_dtype), g.pack(sdf_cost_obstacle, self.field_dtype)], dim=-2
+        )
+
     def pack_stacked_fields(self, sdf_cost_all_b, sdf_cost_obstacle_b):
         """Pack B per-problem field pairs (B, S) into ONE flat (B*2S, 8)
-        corner table + the (B,) per-problem base row offsets."""
+        corner table (the flat (B*2S,) fields with interp='nearest') + the
+        (B,) per-problem base row offsets."""
         g = self.robot.grid
-        tables = torch.cat([g.pack(sdf_cost_all_b), g.pack(sdf_cost_obstacle_b)], dim=1)
+        tables = self.field_table(sdf_cost_all_b, sdf_cost_obstacle_b)
         B = tables.shape[0]
         base = torch.arange(B, device=tables.device) * (2 * g.size)
-        return tables.reshape(B * 2 * g.size, 8), base
+        return tables.reshape((B * 2 * g.size,) + tables.shape[2:]), base
 
     def _seed_trajectories(self, qc, q_solutions):
         """Seed trajectories (..., T, ndof) from qc (ndof,) to each IK
@@ -359,11 +414,12 @@ class GTOPlanner:
         return dQ
 
     def rank_seed_scores(self, seeds, sdf_cost_obstacle, base_position, scene_obstacle=None):
-        """(costs (k,), dists (k,)) of seed trajectories (k, T, ndof): the
-        summed obstacle cost of each replayed seed (floor-indexed field
-        values, or in points mode the shaped signed distance to the
-        obstacle set `scene_obstacle`, one K2 launch) and its start-to-end
-        travel as the tie break.
+        """(costs (..., k), dists (..., k)) of seed trajectories
+        (..., k, T, ndof): the summed obstacle cost of each replayed seed
+        (floor-indexed field values, or in points mode the shaped signed
+        distance to the obstacle set `scene_obstacle`, one K2 launch) and
+        its start-to-end travel as the tie break. Field mode takes one flat
+        field (S,), or one per leading batch entry (..., S).
 
         Field mode with rank strides scores every rank_t-th step, anchored
         at the last step (the grasp pose), and every rank_p-th surface
@@ -374,7 +430,7 @@ class GTOPlanner:
         if self.obstacle_mode != "points" and (self.rank_t_stride > 1 or self.rank_p_stride > 1):
             steps = torch.arange(self.T - 1, -1, -self.rank_t_stride, device=seeds.device).flip(0)
             x, y, z = robot.surface_points_soa(
-                robot.fk_components(seeds[:, steps]), base, stride=self.rank_p_stride
+                robot.fk_components(seeds[..., steps, :]), base, stride=self.rank_p_stride
             )
             pts = torch.stack([x, y, z], dim=-1)
         else:
@@ -385,16 +441,25 @@ class GTOPlanner:
             )
             vals = sdf_cost_shaping(sd, epsilon=self.sdf_epsilon)
         else:
-            vals = robot.grid.lookup_nearest(self._tensor(sdf_cost_obstacle), pts)
-        costs = torch.sum(vals, dim=(1, 2))
-        dists = torch.linalg.vector_norm(seeds[:, 0] - seeds[:, -1], dim=-1)
+            field = self._tensor(sdf_cost_obstacle)
+            if field.dim() == 1:
+                vals = robot.grid.lookup_nearest(field, pts)
+            else:  # one field per leading batch entry: gather from the flat stack
+                lead = field.shape[:-1]
+                first = torch.arange(field[..., 0].numel(), device=field.device).reshape(lead) * field.shape[-1]
+                offs = robot.grid.offsets(pts) + first.reshape(lead + (1,) * (pts.dim() - 1 - len(lead)))
+                vals = field.reshape(-1)[offs]
+        costs = torch.sum(vals, dim=(-2, -1))
+        dists = torch.linalg.vector_norm(seeds[..., 0, :] - seeds[..., -1, :], dim=-1)
         return costs, dists
 
     @staticmethod
     def rank_pick(costs, dists):
-        """Index of the lexicographic (cost, dist) winner: among min-cost
-        seeds, the one with the smallest travel (the first on a tie)."""
-        return torch.argmin(torch.where(costs == torch.min(costs), dists, torch.full_like(dists, float("inf"))))
+        """Index (...,) of the lexicographic (cost, dist) winner over the
+        last axis: among min-cost seeds, the one with the smallest travel
+        (the first on a tie)."""
+        tied = costs == torch.amin(costs, dim=-1, keepdim=True)
+        return torch.argmin(torch.where(tied, dists, torch.full_like(dists, float("inf"))), dim=-1)
 
     def _rank_warm_starts(self, qc, q_solutions, sdf_cost_obstacle, base_position, scene_obstacle=None):
         """Seed trajectories from qc (ndof,) to each IK candidate
@@ -474,10 +539,7 @@ class GTOPlanner:
                 raise ValueError("obstacle_mode='points' needs scene_obstacle and scene_target ScenePointSets")
             shared = scene_sets_from_numpy(scene_obstacle, scene_target, robot.device, robot.dtype)
         else:
-            g = robot.grid
-            shared = {"packed_fields": torch.cat(
-                [g.pack(self._tensor(sdf_cost_all)), g.pack(self._tensor(sdf_cost_obstacle))], dim=0
-            )}
+            shared = {"packed_fields": self.field_table(self._tensor(sdf_cost_all), self._tensor(sdf_cost_obstacle))}
         solvers = self.setup_optimization(cap, use_standoff, axis_standoff)
         X0 = robot.extract_optimized_dimensions(Q0_full[2:])
         Q_opt, cost, _ = solvers.solve_batch_shared(

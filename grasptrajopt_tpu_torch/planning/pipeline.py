@@ -14,9 +14,10 @@ each, every replay scoring one more; the goal-set plan and the rescue
 launch K4, the deep tier K4, the exact tier K2.
 
 Host-facing arguments and returns keep the JAX package's layout: numpy
-plans (ndof, T) and batches (n, ndof, T). The IK screen has no collision
-term (`ik_collision_avoidance=True` raises), so its gate is reach within
-1 cm / 5 degrees.
+plans (ndof, T) and batches (n, ndof, T). The IK screen's gate is reach
+within 1 cm / 5 degrees and, with `ik_collision_avoidance` (the obstacle
+term in the IK cost, K4 on the card), a collision cost below
+`ik_collision_threshold`.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ class GraspPipeline:
         standoff_distance: float = -0.1,
         standoff_offset: int = -10,
         ik_collision_avoidance: bool = False,
+        ik_collision_threshold: float = 5.0,
         collision_filter_offset: float = -0.01,
         collision_filter_ratio: float = 0.01,
         interpolate: bool = True,
@@ -105,8 +107,6 @@ class GraspPipeline:
         dense field builds' cloud (the filter and the scorer keep the full
         cloud); plan_views: the planning fields and the grasp filter use
         the first N views, the replay scorer all of them (None: all)."""
-        if ik_collision_avoidance:
-            raise NotImplementedError("the IK screen's collision term is not ported")
         self.robot = robot
         self.gripper_model = gripper_model
         self.link_ee = link_ee
@@ -116,6 +116,7 @@ class GraspPipeline:
         self.standoff_distance = standoff_distance
         self.collision_filter_offset = collision_filter_offset
         self.collision_filter_ratio = collision_filter_ratio
+        self.ik_collision_threshold = ik_collision_threshold
         self.interpolate = interpolate
         self.use_ik_standoff = use_ik_standoff
         self.goal_capacity = goal_capacity
@@ -157,7 +158,10 @@ class GraspPipeline:
         )
         self._planner_exact: Optional[GTOPlanner] = None
         self._planner_deep: Optional[GTOPlanner] = None
-        self.ik_solver = IKSolver(robot, link_ee, link_gripper, iterations=ik_iterations, num_seeds=ik_num_seeds)
+        self.ik_solver = IKSolver(
+            robot, link_ee, link_gripper, collision_avoidance=ik_collision_avoidance,
+            iterations=ik_iterations, num_seeds=ik_num_seeds,
+        )
         self._gripper_pts = None
         self._plan_pc_obstacle = None
 
@@ -230,6 +234,7 @@ class GraspPipeline:
         # the grasp pre-filter is a planning decision too: it uses the
         # planning views' cloud; the replay scorer gates whatever is planned
         self._plan_pc_obstacle = plan_pc_obstacle
+        self.ik_solver.setup_optimization(grid)
         return depth_pc, depth_pc_obstacle, sdf_cost_all, sdf_cost_obstacle
 
     def filter_grasps(self, RT_grasps_world, depth_pc_obstacle) -> np.ndarray:
@@ -248,9 +253,11 @@ class GraspPipeline:
         sdf = depth_pc_obstacle.get_sdf(pts.reshape(-1, 3)).reshape(n, P).cpu().numpy()
         return (sdf < 0).mean(axis=1) <= self.collision_filter_ratio
 
-    def screen_ik(self, q0, RT_grasps_base):
+    def screen_ik(self, q0, RT_grasps_base, sdf_cost_obstacle=None, base_position=(0.0, 0.0, 0.0)):
         """Multistart IK over the grasp set (base frame), padded by tiling
-        to `ik_capacity`. Returns host (q (n, ndof), found (n,))."""
+        to `ik_capacity`; with the IK collision term, against the obstacle
+        field sdf_cost_obstacle (flat, on the IK solver's grid). Returns
+        host (q (n, ndof), found (n,))."""
         RT_ik = np.asarray(RT_grasps_base)
         if self.use_ik_standoff:
             RT_ik = RT_ik @ self.robot.get_standoff_pose(self.standoff_distance, self.axis_standoff)
@@ -258,11 +265,12 @@ class GraspPipeline:
         if self.ik_capacity is not None and n < self.ik_capacity:
             reps = int(np.ceil(self.ik_capacity / n))
             RT_ik = np.tile(RT_ik, (reps, 1, 1))[: self.ik_capacity]
-        q, err_pos, err_rot = self.ik_solver.solve_ik_batch(
-            self._tensor(np.asarray(q0)), self._tensor(RT_ik), multistart=True
+        q, err_pos, err_rot, col = self.ik_solver.solve_ik_batch(
+            self._tensor(np.asarray(q0)), self._tensor(RT_ik), sdf_cost_obstacle, base_position,
+            multistart=True,
         )
-        q, err_pos, err_rot = (a[:n].cpu().numpy() for a in (q, err_pos, err_rot))
-        return q, (err_pos < 0.01) & (err_rot < 5.0)
+        q, err_pos, err_rot, col = (a[:n].cpu().numpy() for a in (q, err_pos, err_rot, col))
+        return q, (err_pos < 0.01) & (err_rot < 5.0) & (col < self.ik_collision_threshold)
 
     # -- the per-object pipeline ----------------------------------------------
 
@@ -282,7 +290,7 @@ class GraspPipeline:
                                   checking_time, 0.0, 0.0, "no_collision_free_grasp")
 
         t0 = self._now()
-        q_sols, found = self.screen_ik(qc, RT_base)
+        q_sols, found = self.screen_ik(qc, RT_base, sdf_obs, base_position)
         ik_time = self._now() - t0
         RT_base = RT_base[found]
         q_solutions = q_sols[found].T

@@ -1,12 +1,45 @@
 """Quaternion ops (scalar-last xyzw), port of
-grasptrajopt_tpu/spatial/quaternion.py: the rotation extraction and the
-IK screen's rotation-error metric."""
+grasptrajopt_tpu/spatial/quaternion.py: the Hamilton product and
+conjugate, the conversions to and from rotation matrices, and the IK
+screen's rotation-error metric."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def qconj(q):
+    """Conjugate of xyzw quaternions (..., 4)."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def qmul(q1, q2):
+    """Hamilton product of xyzw quaternions, broadcasting over batch axes."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat2r(q):
+    """xyzw quaternion (..., 4), normalized here -> rotation (..., 3, 3)."""
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+    x, y, z, w = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def r2quat(R):
@@ -53,3 +86,8 @@ def qangle_deg(q1, q2):
     d = torch.sum(q1 * q2, dim=-1)
     c = torch.clamp(2.0 * d * d - 1.0, -1.0, 1.0)
     return torch.arccos(c) * (180.0 / math.pi)
+
+
+def rotation_angle_deg(R1, R2):
+    """Relative rotation angle (degrees) between rotation matrices."""
+    return qangle_deg(r2quat(R1), r2quat(R2))

@@ -23,6 +23,51 @@ def skew(v):
     return torch.stack(rows, dim=-2)
 
 
+def _rot(theta, rows_of):
+    """(...,) angles -> (..., 3, 3) from a function of (c, s, one, zero)
+    giving the three rows."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    return torch.stack([torch.stack(r, dim=-1) for r in rows_of(c, s, one, zero)], dim=-2)
+
+
+def rotx(theta):
+    """Rotation about x: (...,) -> (..., 3, 3)."""
+    return _rot(theta, lambda c, s, one, zero: ((one, zero, zero), (zero, c, -s), (zero, s, c)))
+
+
+def roty(theta):
+    """Rotation about y: (...,) -> (..., 3, 3)."""
+    return _rot(theta, lambda c, s, one, zero: ((c, zero, s), (zero, one, zero), (-s, zero, c)))
+
+
+def rotz(theta):
+    """Rotation about z: (...,) -> (..., 3, 3)."""
+    return _rot(theta, lambda c, s, one, zero: ((c, -s, zero), (s, c, zero), (zero, zero, one)))
+
+
+def rpy2r(rpy):
+    """Roll-pitch-yaw (..., 3) -> rotation (..., 3, 3), the URDF convention
+    R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
+    return rotz(rpy[..., 2]) @ roty(rpy[..., 1]) @ rotx(rpy[..., 0])
+
+
+def r2rpy(R):
+    """Rotation (..., 3, 3) -> roll-pitch-yaw (..., 3) with R = Rz@Ry@Rx, by
+    atan2; at the pitch singularity (cos(pitch) < 1e-6) yaw is 0 and roll
+    takes the rest of the rotation."""
+    cy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    pitch = torch.atan2(-R[..., 2, 0], cy)
+    singular = cy < 1e-6
+    roll = torch.where(
+        singular,
+        torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+        torch.atan2(R[..., 2, 1], R[..., 2, 2]),
+    )
+    yaw = torch.where(singular, torch.zeros_like(pitch), torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def angvec2r(theta, v):
     """Rodrigues rotation: angle (...,) about an axis (..., 3), normalized
     internally with a zero-axis guard."""
@@ -46,9 +91,14 @@ def rt2tr(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def tr2rt(T):
+    """Homogeneous (..., 4, 4) -> (rotation (..., 3, 3), translation (..., 3))."""
+    return T[..., :3, :3], T[..., :3, 3]
+
+
 def invt(T):
     """Inverse of a homogeneous transform: [R t]^-1 = [R^T, -R^T t]."""
-    R, t = T[..., :3, :3], T[..., :3, 3]
+    R, t = tr2rt(T)
     Rt = R.transpose(-1, -2)
     return rt2tr(Rt, -(Rt @ t[..., :, None])[..., 0])
 
@@ -64,6 +114,11 @@ def transform_points(T, points):
     R, t = T[..., :3, :3], T[..., :3, 3]
     out = torch.sum(points[..., :, None, :] * R[..., None, :, :], dim=-1)
     return out + t[..., None, :]
+
+
+def transform_directions(T, dirs):
+    """Rotate (..., N, 3) direction vectors by the rotation part of T."""
+    return torch.sum(dirs[..., :, None, :] * T[..., None, :3, :3], dim=-1)
 
 
 def standoff(offset: float, axis: str, dtype=torch.float32, device=None):

@@ -97,7 +97,7 @@ def test_warm_start_with_multistart_rescue_matches_bench_py(robots):
     n = CFG.batch * CFG.goal_capacity
     keys = jax.random.split(jax.random.PRNGKey(0), n)
     restarts = np.stack([jax_restarts(jr, keys[i], SEEDS - 1) for i in range(n)])
-    ik = IKSolver(pr, "hand", "hand", iterations=IK_ITERS, num_seeds=SEEDS)
+    ik = IKSolver(pr, "hand", "hand", collision_avoidance=False, iterations=IK_ITERS, num_seeds=SEEDS)
     X0, warm = pbench.warm_start(pr, ik, t64(QC), t64(tf_goal), CFG.T - 2, restarts=t64(restarts))
     np.testing.assert_array_equal(np_(warm), warm_j)
     np.testing.assert_allclose(np_(X0), X0_j, atol=1e-8, rtol=0)

@@ -331,6 +331,80 @@ def test_field_lookup_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert interp.field_lookup_launches == before
 
 
+@pytest.mark.parametrize(
+    "lead,layout",
+    [
+        ((32, 50, 1_000), "shared"),  # the bench's fine pass
+        ((16, 50, 100), "stacked"),  # per-problem tables, 16 objects
+        ((4, 50, 123), "aos"),  # the x / y / z views of (..., 3) points
+        ((3, 7, 11), "ragged"),
+    ],
+)
+def test_field_lookup_bf16_mode_matches_plain(cuda, lead, layout):
+    """The bf16-row mode: the same lookups on the table cast to bf16, one
+    launch each, within the float32 mode's tolerance of the plain version
+    (which upcasts the same rows)."""
+    from grasptrajopt_tpu_torch.ops import interp
+
+    n_tables = 16 if layout == "stacked" else 1
+    table, pts, S = _lookup_inputs(cuda, lead, n_tables, seed=1)
+    table = table.to(torch.bfloat16)
+    T = lead[1]
+    row = (torch.arange(T, device=cuda) >= T - 3).long()[:, None] * S
+    if layout == "stacked":
+        row = row + (torch.arange(lead[0], device=cuda) * 2 * S)[:, None, None]
+    if layout == "aos":
+        x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    else:
+        x, y, z = (pts[..., i].contiguous() for i in range(3))
+    before = interp.field_lookup_launches
+    got = interp.field_lookup_packed_soa_grad(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES, row_offset=row)
+    torch.cuda.synchronize()
+    assert interp.field_lookup_launches == before + 1
+    want = interp.field_lookup_packed_soa_grad_reference(table, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES, row_offset=row)
+    _check_lookup(got, want)
+
+
+def test_field_lookup_bf16_wrapper_refuses(cuda):
+    """float16 tables and a bf16 table off 16-byte alignment raise."""
+    from grasptrajopt_tpu_torch.ops import interp
+
+    table, pts, _ = _lookup_inputs(cuda, (2, 5, 7))
+    x, y, z = (pts[..., i].contiguous() for i in range(3))
+    flat = torch.empty(table.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(table.shape)  # 2 bytes off the allocation's alignment
+    shifted.copy_(table)
+    before = interp.field_lookup_launches
+    with pytest.raises(TypeError):
+        interp.field_lookup_packed_soa_grad(table.half(), x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES)
+    with pytest.raises(ValueError):
+        interp.field_lookup_packed_soa_grad(shifted, x, y, z, K4_ORIGIN, K4_SHAPE, K4_RES)
+    assert interp.field_lookup_launches == before
+
+
+@pytest.mark.parametrize("interp_mode,launches", [("trilinear", 1 + 2 * 3), ("nearest", 0)])
+def test_ik_collision_term_launches(cuda, interp_mode, launches):
+    """The IK screen's collision term on the card: with trilinear lookups
+    K4 launches exactly once for the starting cost and twice an LM
+    iteration (the linearisation and the trial candidates), for the whole
+    multistart batch; the nearest variant is a plain gather."""
+    from grasptrajopt_tpu_torch.ops import interp
+    from grasptrajopt_tpu_torch.planning import ik_solver
+    from grasptrajopt_tpu_torch.testing import SYNTH_DEFAULT_POSE, make_synthetic_goal, make_synthetic_gto_robot
+
+    robot = make_synthetic_gto_robot(device=cuda, dtype=torch.float32, points_per_link=100)
+    z = torch.as_tensor(robot.grid.grid_points(np.float32)[:, 2], device=cuda)
+    field = torch.clamp(0.6 - z, min=0.0)
+    goals = torch.as_tensor(np.stack([make_synthetic_goal(s) for s in range(4)]), dtype=torch.float32, device=cuda)
+    qc = torch.as_tensor(SYNTH_DEFAULT_POSE, dtype=torch.float32, device=cuda)
+    ik = ik_solver.IKSolver(robot, "hand", "hand", interp=interp_mode, iterations=3, num_seeds=2)
+    before = interp.field_lookup_launches
+    q, _, _, col = ik.solve_ik_batch(qc, goals, field, (0.01, -0.02, 0.03), multistart=True)
+    torch.cuda.synchronize()
+    assert interp.field_lookup_launches == before + launches
+    assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(col).all())
+
+
 # -- the closed-loop pipeline's clouds, replay scorer and one trial ----------
 
 

@@ -28,8 +28,11 @@ def test_ik_batch_matches_jax(robots):
     qj, epj, erj, _ = JaxIK(jr, "hand", "hand", collision_avoidance=False, iterations=20).solve_ik_batch(
         np.tile(q0, (N, 1)), RTs
     )
-    qp, epp, erp = IKSolver(pr, "hand", "hand", iterations=20).solve_ik_batch(t64(q0), t64(RTs))
+    qp, epp, erp, colp = IKSolver(pr, "hand", "hand", collision_avoidance=False, iterations=20).solve_ik_batch(
+        t64(q0), t64(RTs)
+    )
     np.testing.assert_allclose(np_(qp), qj, atol=1e-8)
     np.testing.assert_allclose(np_(epp), epj, atol=1e-8)
     np.testing.assert_allclose(np_(erp), erj, atol=1e-6)
     assert (epj < 0.01).any()  # the screen reaches some goals
+    assert not colp.any()  # no collision term: zero collision cost

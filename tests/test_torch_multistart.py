@@ -51,13 +51,13 @@ def test_multistart_batch_matches_jax(setup):
     qj, epj, erj, _ = jik.solve_ik_batch(QC, goals, multistart=True, seed=0)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     restarts = np.stack([jax_restarts(jr, keys[b], SEEDS - 1) for b in range(B)])
-    ik = IKSolver(pr, "hand", "hand", iterations=ITERS, num_seeds=SEEDS)
-    qp, epp, erp = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, restarts=t64(restarts))
+    ik = IKSolver(pr, "hand", "hand", collision_avoidance=False, iterations=ITERS, num_seeds=SEEDS)
+    qp, epp, erp, _ = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, restarts=t64(restarts))
     np.testing.assert_allclose(np_(qp), qj, atol=1e-8)
     np.testing.assert_allclose(np_(epp), epj, atol=1e-8)
     np.testing.assert_allclose(np_(erp), erj, atol=1e-6)
     # the restarts matter: some goal's winner is not the plain seed's solution
-    q1, _, _ = ik.solve_ik_batch(t64(QC), t64(goals))
+    q1, _, _, _ = ik.solve_ik_batch(t64(QC), t64(goals))
     assert not np.allclose(np_(q1), qj, atol=1e-6)
 
 
@@ -66,8 +66,8 @@ def test_multistart_single_goal_matches_jax(setup):
     jik = JaxIK(jr, "hand", "hand", collision_avoidance=False, iterations=ITERS, num_seeds=SEEDS)
     qj, epj, erj, _ = jik.solve_ik(QC, goals[2], verbose=False, multistart=True, seed=5)
     restarts = jax_restarts(jr, jax.random.PRNGKey(5), SEEDS - 1)
-    ik = IKSolver(pr, "hand", "hand", iterations=ITERS, num_seeds=SEEDS)
-    qp, epp, erp = ik.solve_ik(t64(QC), t64(goals[2]), multistart=True, restarts=t64(restarts))
+    ik = IKSolver(pr, "hand", "hand", collision_avoidance=False, iterations=ITERS, num_seeds=SEEDS)
+    qp, epp, erp, _ = ik.solve_ik(t64(QC), t64(goals[2]), verbose=False, multistart=True, restarts=t64(restarts))
     np.testing.assert_allclose(np_(qp), qj, atol=1e-8)
     assert abs(epp - epj) <= 1e-8 and abs(erp - erj) <= 1e-6
 
@@ -76,7 +76,7 @@ def test_multistart_draws_from_its_seed(setup):
     """Without explicit restarts: a torch.Generator on the solver's
     device, seeded; the same seed gives the same solutions."""
     _, pr, goals = setup
-    ik = IKSolver(pr, "hand", "hand", iterations=3, num_seeds=SEEDS)
+    ik = IKSolver(pr, "hand", "hand", collision_avoidance=False, iterations=3, num_seeds=SEEDS)
     a = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, seed=1)
     b = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, seed=1)
     for x, y in zip(a, b):

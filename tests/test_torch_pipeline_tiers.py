@@ -74,7 +74,7 @@ def stub_pipeline(robots, monkeypatch, scores, batches, trunc=None, escalate=Tru
     zeros = torch.zeros(robot.grid.size, dtype=torch.float32)
     monkeypatch.setattr(p, "build_fields", lambda *a: (None, "cloud", zeros, zeros))
     monkeypatch.setattr(p, "filter_grasps", lambda RT, pc: np.ones(len(RT), dtype=bool))
-    monkeypatch.setattr(p, "screen_ik", lambda qc, RT: (np.tile(QC, (len(RT), 1)), np.ones(len(RT), dtype=bool)))
+    monkeypatch.setattr(p, "screen_ik", lambda qc, RT, *a: (np.tile(QC, (len(RT), 1)), np.ones(len(RT), dtype=bool)))
 
     def plan_goalset(*a, **k):
         calls.append("plan")

@@ -13,9 +13,11 @@ and escalated flags and the scorer's verdicts are identical; errors and
 plans agree to 1e-5. The result round-trips through the port's
 aggregate_results as through the JAX package's.
 
-Marked slow: the JAX harness's solver compiles make it 150-160 s alone
-on the CPU. Run it with `-m slow`; test_torch_pipeline_{stages,plan,
-tiers}.py hold the same stages to the JAX package in the default run."""
+The file takes 150-160 s alone on a CPU: the JAX harness compiles its IK
+screen (about 20 s) for each trial and its goal-set plan and rescue
+(about 45-50 s each) once. One trial a file would repeat those compiles
+(about 140 s a file), so both trials stay here; test_torch_pipeline_{stages,
+plan,tiers}.py hold the same stages to the JAX package at smaller cost."""
 
 import json
 
@@ -32,7 +34,6 @@ from grasptrajopt_tpu_torch.testing import SYNTH_EVAL_CONFIG, make_synthetic_gri
 from grasptrajopt_tpu_torch.utils.results import aggregate_results, load_results
 from torch_parity import make_jax_synth_gripper, make_jax_synth_robot, port_robot, use_jax_restarts
 
-pytestmark = pytest.mark.slow
 IK_ITERATIONS = 10
 RUN = dict(
     scene_type="tabletop", scene_ids=[10], n_objects=2, width=48, height=48, goal_capacity=12, iterations=3,

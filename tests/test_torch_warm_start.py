@@ -50,9 +50,9 @@ def both():
     _, pos_m, rot_m, _ = jik.solve_ik_batch(np.tile(QC, (B * CAP, 1)), goals, multistart=True)
     keys = jax.random.split(jax.random.PRNGKey(0), B * CAP)
     restarts = np.stack([jax_restarts(jr, k, jik.num_seeds - 1) for k in keys])
-    ik = IKSolver(port_robot(jr), "hand", "hand")
-    _, ppos, prot = ik.solve_ik_batch(t64(QC), t64(goals))
-    _, ppos_m, prot_m = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, restarts=t64(restarts))
+    ik = IKSolver(port_robot(jr), "hand", "hand", collision_avoidance=False)
+    _, ppos, prot, _ = ik.solve_ik_batch(t64(QC), t64(goals))
+    _, ppos_m, prot_m, _ = ik.solve_ik_batch(t64(QC), t64(goals), multistart=True, restarts=t64(restarts))
     jax_errs = tuple(np.asarray(a) for a in (pos, rot, pos_m, rot_m))
     port_errs = tuple(np_(a) for a in (ppos, prot, ppos_m, prot_m))
     return jax_errs, port_errs

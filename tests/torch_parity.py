@@ -18,6 +18,11 @@ from grasptrajopt_tpu.testing import (
 from grasptrajopt_tpu_torch.convert import robot_from_numpy
 from grasptrajopt_tpu_torch.testing import SYNTH_GRIPPER_URDF
 
+# The parity tests run many small float64 ops on the CPU in each of the
+# test workers at once: one intra-op thread a worker keeps torch from
+# oversubscribing the cores (each worker otherwise starts one thread a core).
+torch.set_num_threads(1)
+
 
 def make_jax_synth_robot(points_per_link: int = 10, grid_resolution: float = 0.05):
     """The JAX package's synthetic arm in float64 (optionally on a coarser
@@ -103,10 +108,11 @@ def use_jax_restarts(ik_solver, jr):
     package does (the port's own are a torch.Generator's)."""
     solve = ik_solver.solve_ik_batch
 
-    def solve_with_jax_restarts(q_0, RTs, multistart=False, seed=0, restarts=None):
+    def solve_with_jax_restarts(q_0, RTs, sdf_cost_obstacle=None, base_position=(0.0, 0.0, 0.0),
+                                multistart=False, seed=0, restarts=None):
         if multistart and restarts is None:
             restarts = torch.as_tensor(jax_ik_restarts(jr, RTs.shape[0], ik_solver.num_seeds, seed))
-        return solve(q_0, RTs, multistart, seed, restarts)
+        return solve(q_0, RTs, sdf_cost_obstacle, base_position, multistart, seed, restarts)
 
     ik_solver.solve_ik_batch = solve_with_jax_restarts
 
@@ -200,3 +206,27 @@ def run_escalation_tier(tier: str, monkeypatch, T: int = 12, size: int = 48, n_g
         )
         out[name] = {"plans": Q, "costs": cost, "scores": scores}
     return out
+
+
+# the goal-set batch problems' planner flavour: T = 12, single pass, 3 iterations
+GOALSET_KW = dict(T=12, iterations=3, single_pass=True, standoff_distance=-0.1)
+
+
+def goalset_problem(jr):
+    """plan_goalset_batch's arguments (host numpy) on the JAX robot's grid:
+    B = 2 problems of G = 3 goals (one slot masked), their own scene
+    fields, base offsets and noisy warm starts."""
+    from grasptrajopt_tpu.testing import SYNTH_DEFAULT_POSE, make_synthetic_goal, make_synthetic_scene_field
+
+    T = GOALSET_KW["T"]
+    rng = np.random.default_rng(9)
+    B, G = 2, 3
+    qc = np.tile(SYNTH_DEFAULT_POSE, (B, 1))
+    tf_goal = np.stack([np.stack([make_synthetic_goal(seed=3 * b + g) for g in range(G)]) for b in range(B)])
+    goal_mask = np.array([[True, False, True], [True, True, True]])
+    f_all = np.stack([make_synthetic_scene_field(jr, seed=b) for b in range(B)]).astype(np.float64)
+    f_obs = 0.5 * f_all
+    base = np.array([[0.0, 0.0, 0.0], [0.02, -0.01, 0.0]])
+    Q0 = np.tile(SYNTH_DEFAULT_POSE, (B, T, 1))
+    Q0[..., :7] += rng.normal(scale=0.05, size=(B, T, 7))
+    return qc, tf_goal, goal_mask, f_all, f_obs, base, Q0
