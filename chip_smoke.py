@@ -148,9 +148,25 @@ result line:
      it planned against; the deep tier likewise (K4 = 13, on the shelf's
      table); one failing trial again under torch.profiler.
      Trial lines, tiers, launches and the aggregate are printed, not gated;
-  9. result: the nvidia-smi line, one JSON line of kernel records (with
+  9. mobile (grasptrajopt_tpu_torch.synthetic_eval_mobile, the mobile
+     harness a user runs): the synthetic arm and its gripper at full width
+     (the closed loop's flavour), tabletop scene 10 (nearest first, 3
+     objects) and shelf scene 10 (random order, 2 objects), each a base
+     placement from (-0.8, 0.3, yaw -0.3) on synth7's mount: the
+     occupancy build must launch K3 exactly once and nothing else, its
+     grid identical cell for cell to the plain version's on the same CUDA
+     tensors and d2 within 1e-5 m^2; the solved base pose finite with
+     theta in [-pi, pi]; then one trial an object in the new base frame
+     with phase 8's checks (exact launch counts, plans finite, within the
+     limits and pinned, each solve against the plain kernel). The tries
+     and their col_cost, the base pose, the chosen grasps' errors, one
+     base solve's wall time under torch.profiler, K3 at each occupancy
+     shape (lone and queued, against plain and its bound) and the trials'
+     outcomes are printed, not gated;
+ 10. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
-     call's time), and the last line {"ok": true, "device": {...}}.
+     call's time; K3 also at the occupancy builds), and the last line
+     {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1623,6 +1639,201 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
     print(f"[closed-loop] all trials: {json.dumps(se.summary(merged))}; phase {time.perf_counter() - t0:.1f} s")
 
 
+# the mobile phase's occupancy epsilon (setup_occupancy_grid's default)
+OCC_EPSILON = 0.02
+
+
+def check_occupancy(name, build):
+    """One occupancy build's K3 launch against the plain version on the
+    same CUDA tensors: d2 within NEAR_TOL, and the 0/1 grid identical cell
+    for cell. Returns max |d2 err|."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import nn
+
+    q, ref, d2 = build["query"], build["ref"], build["d2"]
+    want, _ = nn.min_sqdist_reference(q, ref)
+    err = float((d2.double() - want.double()).abs().max())
+    if not err <= NEAR_TOL:
+        raise AssertionError(f"{name}: K3's d2 differs from plain by {err:.3e} m^2")
+    plain_grid = (torch.sqrt(want) < OCC_EPSILON).to(build["grid"].dtype)
+    if not torch.equal(build["grid"], plain_grid):
+        flips = int((build["grid"] != plain_grid).sum())
+        near = float((torch.sqrt(want.double()) - OCC_EPSILON).abs().min())
+        raise AssertionError(f"{name}: {flips} occupancy cells differ from plain's (nearest cell to epsilon "
+                             f"{near:.3e} m off it)")
+    return err
+
+
+def time_occupancy_k3(build):
+    """(lone ms, queued ms, plain ms, bound ms, bound_by) of K3 at one
+    occupancy build's shape: the lone call by CUDA events (the wrapper's
+    host time included), queued by queued_ms (device time); bound as phase
+    4's: ~10 FP32 instructions a pair, the queries, the (1, 4, N) rows, d2
+    and the index."""
+    from grasptrajopt_tpu_torch.ops import nn
+
+    q, ref = build["query"], build["ref"]
+    kernel_t, plain_t = [], []
+    for _ in range(3):  # in turns: plain, kernel
+        plain_t += cuda_ms(lambda: nn.min_sqdist_reference(q, ref), 1)
+        kernel_t += cuda_ms(lambda: nn.min_sqdist(q, ref), 1)
+    qm = queued_ms(lambda: nn.min_sqdist(q, ref))
+    M, N = q.shape[0], ref.shape[0]
+    bm, by = bound_ms(4 * (3 * M + 4 * N + 2 * M), 10 * M * N)
+    return statistics.median(kernel_t), qm, statistics.median(plain_t), bm, by
+
+
+def phase_mobile(dev, tabletop_objects: int = 3, shelf_objects: int = 2, points_per_link: int = 100,
+                 size: int = 160):
+    """The mobile harness (grasptrajopt_tpu_torch.synthetic_eval_mobile) on
+    the synthetic arm and its gripper at full width: tabletop scene 10
+    (nearest first) and shelf scene 10 (random order), each a base
+    placement from (-0.8, 0.3, yaw -0.3) on synth7's mount, then one trial
+    an object in the new base frame. Per placement: exactly one K3 launch
+    in the occupancy build and no other kernel, its grid identical to the
+    plain version's on the same CUDA tensors (check_occupancy), the solved
+    base pose finite with theta in [-pi, pi]; per trial phase 8's checks
+    (expected launches, plans finite, within the limits and pinned, each
+    solve against the plain kernel). Reports the tries and their
+    col_cost, the base pose, the chosen grasps' errors, one base solve's
+    wall time under torch.profiler, K3 at each occupancy shape, and the
+    trials. Returns {"launches": K3 launches, "err", "ms", "plain_ms",
+    "bound_ms", "bound_by"} summed over the placements' shapes (ms queued)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from grasptrajopt_tpu_torch import synthetic_eval_mobile as mobile
+    from grasptrajopt_tpu_torch.ops import interp, nn
+    from grasptrajopt_tpu_torch.planning.base_planner import BasePlanner
+    from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
+    from grasptrajopt_tpu_torch.testing import (
+        SYNTH_EVAL_CONFIG, make_synthetic_gripper, make_synthetic_gto_robot,
+    )
+
+    cfg = dict(SYNTH_EVAL_CONFIG)
+    gripper = make_synthetic_gripper(device=dev, dtype=torch.float32, points_per_link=points_per_link)
+    flavour = dict(goal_capacity=32, width=size, height=size, coarse_stride=2, **CLOSED_LOOP_FLAVOUR)
+    qc = torch.as_tensor(cfg["default_pose"], dtype=torch.float32, device=dev)
+    rec = TrialRecorder()
+    builds, solves = [], []
+
+    def setup_occupancy_grid(orig):
+        def run(robot, points, *args, **kwargs):
+            rec.close()  # the open trial's counts end here
+            captured = {}
+            kernel = nn.min_sqdist
+
+            def capture(query, ref, ref_mask=None):
+                out = kernel(query, ref, ref_mask)
+                captured.update(query=query, ref=ref, d2=out[0])
+                return out
+            nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+            nn.min_sqdist = capture
+            try:
+                grid = orig(robot, points, *args, **kwargs)
+            finally:
+                nn.min_sqdist = kernel
+            torch.cuda.synchronize()
+            launches = {"K1": nn.min_d2_launches, "K2": nn.nearest_launches, "K3": nn.min_sqdist_launches,
+                        "K4": interp.field_lookup_launches}
+            builds.append({**captured, "grid": robot.occupancy_grid, "shape": grid.shape, "launches": launches})
+            return grid
+        return run
+
+    def plan_goalset(orig):
+        def run(planner, qc_, RTs, verbose=True):
+            solves.append((planner, qc_, RTs))
+            return orig(planner, qc_, RTs, verbose)
+        return run
+
+    rec.install()
+    rec._patch(GTORobotModel, "setup_occupancy_grid", setup_occupancy_grid)
+    rec._patch(BasePlanner, "plan_goalset", plan_goalset)
+    t0 = time.perf_counter()
+    results = {}
+    try:
+        for st, ordering, n_obj in (("tabletop", "nearest_first", tabletop_objects),
+                                    ("shelf", "random", shelf_objects)):
+            robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=points_per_link,
+                                             grid_resolution=mobile.SCENE_KNOBS[st]["grid_resolution"])
+            first, placed = len(rec.trials), []
+            results[st] = mobile.evaluate_scenes(
+                robot, gripper, cfg, scene_type=st, scene_ids=[10], n_objects=n_obj, orderings=[ordering],
+                verbose=False, placements=placed, **flavour,
+            )
+            rec.close()
+            trials = rec.trials[first:]
+            (p,) = placed
+            names = [n for n in results[st]["10"][ordering] if n != "RT_base_new"]
+            if len(trials) != len(names):
+                raise AssertionError(f"mobile {st}: {len(trials)} trials recorded for {len(names)} objects")
+            build = builds[-1]
+            if build["launches"] != {"K1": 0, "K2": 0, "K3": 1, "K4": 0}:
+                raise AssertionError(f"mobile {st}: the occupancy build launched {build['launches']}, "
+                                     "expected K3 once and nothing else")
+            build["err"] = check_occupancy(f"mobile {st} occupancy", build)
+            y = np.asarray(p["y"])
+            if not (np.isfinite(y).all() and -math.pi <= y[2] <= math.pi and np.isfinite(p["RT_base_new"]).all()):
+                raise AssertionError(f"mobile {st}: base pose {y.tolist()} (theta must lie in [-pi, pi])")
+            last = p["tries"][-1]
+            print(f"[mobile] {st} scene 10 [{ordering}], {n_obj} objects: occupancy grid {build['shape']} "
+                  f"({build['grid'].numel()} cells, {int(build['grid'].sum())} occupied) from "
+                  f"{build['ref'].shape[0]} points above the floor: K3 launches {build['launches']['K3']} (as "
+                  f"expected), cells as plain's, max |d2 err| {build['err']:.3e} m^2; {len(p['tries'])} tries, "
+                  f"col_cost {[t['col_cost'] for t in p['tries']]}; base y {np.round(y, 4).tolist()}, new base "
+                  f"({p['RT_base_new'][0, 3]:.3f}, {p['RT_base_new'][1, 3]:.3f}, yaw "
+                  f"{math.atan2(p['RT_base_new'][1, 0], p['RT_base_new'][0, 0]):.3f}); the chosen grasps' err_pos "
+                  f"{np.round(last['err_pos'], 4).tolist()} m, err_rot {np.round(last['err_rot'], 2).tolist()} deg")
+            for name, trial in zip(names, trials):
+                r = results[st]["10"][ordering][name]
+                want = expected_launches(trial)
+                if trial["launches"] != want:
+                    raise AssertionError(f"mobile {st} {name}: tiers {trial['tiers']}, {trial['replays']} replays: "
+                                         f"launches {trial['launches']}, expected {want}")
+                if "plan" in r:
+                    Q = torch.as_tensor(r["plan"], dtype=torch.float32, device=dev).T
+                    check_plans(f"mobile {st} {name}", Q, qc, robot)
+                solved = check_trial_solves(f"mobile {st} {name}", trial)
+                trial["solves"] = trial["sdf"] = None
+                print(f"[mobile] {st} {name}: tiers {trial['tiers']}, replays {trial['replays']}, launches "
+                      f"{trial['launches']} (as expected), stage {r['stage']}, reward {r['reward']}, collision "
+                      f"{r.get('collision', '-')}, rescued {r['rescued']}, escalated {r['escalated']}, err_pos "
+                      f"{r.get('err_pos', float('nan')):.4f}, checking / IK / planning {r['checking_time']:.3f} / "
+                      f"{r['ik_time']:.3f} / {r['planning_time']:.3f} s; solves vs plain: "
+                      + (", ".join(f"{t} {b} {k} {e:.3e}" for t, b, k, e in solved) or "none"))
+            print(f"[mobile] {st} aggregate: {json.dumps(mobile.summary(results[st]))}; "
+                  f"{time.perf_counter() - t0:.1f} s into the phase")
+    finally:
+        rec.restore()
+
+    # one base solve (the shelf's last try) again: wall time and profile
+    planner, qc_b, RTs_b = solves[-1]
+    prof = profile_trial(lambda: planner.plan_goalset(qc_b, RTs_b, verbose=False))
+    print(f"[mobile] one base solve ({RTs_b.shape[0]} goals, {planner.iterations} LM iterations, "
+          f"{3 + RTs_b.shape[0] * planner.robot.num_opt_joints} variables, {planner.gripper_points.shape[0]} "
+          f"gripper points): unprofiled wall {prof['wall_ms']:.1f} ms, device time {prof['device_ms']:.1f} ms, "
+          f"{prof['device_ops']} device ops, busy {prof['busy']:.1%}; top {json.dumps(prof['top'])}")
+
+    total = {"launches": len(builds), "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None}
+    for st, build in zip(("tabletop", "shelf"), builds):
+        km, qm, pm, bm, by = time_occupancy_k3(build)
+        M, N = build["query"].shape[0], build["ref"].shape[0]
+        print(f"[mobile] K3 at the {st} occupancy build (C=1 M={M} N={N}, {M * N:.3e} pairs): lone {km:.4f} ms "
+              f"({bm / km:.1%} of the bound), queued {qm:.4f} ms ({bm / qm:.1%}), plain {pm:.4f} ms, bound "
+              f"{bm:.4f} ms ({by})")
+        total["err"] = max(total["err"], build["err"])
+        total["ms"] += qm
+        total["plain_ms"] += pm
+        total["bound_ms"] += bm
+        total["bound_by"] = by if total["bound_by"] in (None, by) else "operations"
+    merged = {f"{st}_10": r["10"] for st, r in results.items()}
+    print(f"[mobile] all trials: {json.dumps(mobile.summary(merged))}; phase {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +1864,7 @@ def main() -> int:
     del path, obs, out
     k4, k4_launches = phase_bench(dev)
     phase_closed_loop(dev)
+    occ = phase_mobile(dev)
     print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
           f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
           f"(max |err| there {ik_err:.3e})")
@@ -1678,6 +1890,9 @@ def main() -> int:
                "grasptrajopt_tpu/ops/nn.py:296", k2_launches, *near["K2"], None),
         record("K3 min_sqdist (nearest.cu in its index-only mode: d2 and argmin under a mask)", "nearest.cu",
                "grasptrajopt_tpu/ops/nn.py:420", k3_launches, *near["K3"], None),
+        record("K3 min_sqdist at the mobile occupancy builds (tabletop and shelf placements; ms queued)",
+               "nearest.cu", "grasptrajopt_tpu/ops/nn.py:420", occ["launches"], occ["err"], occ["ms"],
+               occ["plain_ms"], occ["bound_ms"], occ["bound_by"], None),
         record("K4 field_lookup (packed-row trilinear lookup with its closed-form gradient)", "field_lookup.cu",
                "tools/probe_vmem_gather.py:52", k4_launches["default"], *k4_fields(k4["float32"])),
         record("K4 field_lookup, bf16-row mode (one 16-byte row a point, upcast to float32)", "field_lookup.cu",

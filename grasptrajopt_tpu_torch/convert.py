@@ -14,7 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from grasptrajopt_tpu_torch.fields.voxel_grid import VoxelGrid
+from grasptrajopt_tpu_torch.fields.voxel_grid import OccupancyGrid2D, VoxelGrid
 from grasptrajopt_tpu_torch.models.kinematics import KinematicModel
 from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 
@@ -50,6 +50,24 @@ def robot_from_numpy(state: Mapping, device="cuda", dtype=torch.float32) -> GTOR
             resolution=float(state["grid_resolution"]),
         )
     return robot
+
+
+def occupancy_from_numpy(robot: GTORobotModel, origin, shape, resolution, grid) -> OccupancyGrid2D:
+    """Set the port robot's 2-D occupancy grid from a JAX robot's:
+    `origin` (2,), `shape` (2,) and `resolution` of its `OccupancyGrid2D`
+    and its flat 0/1 `occupancy_grid` (size,), as numpy. Returns the
+    grid."""
+    robot.occupancy = OccupancyGrid2D(
+        origin=tuple(float(v) for v in np.asarray(origin)),
+        shape=tuple(int(v) for v in np.asarray(shape)),
+        resolution=float(resolution),
+    )
+    grid = np.asarray(grid).reshape(-1)
+    if grid.shape[0] != robot.occupancy.size:
+        raise ValueError(f"occupancy grid has {grid.shape[0]} cells, its shape {robot.occupancy.shape} needs "
+                         f"{robot.occupancy.size}")
+    robot.occupancy_grid = torch.as_tensor(grid, dtype=robot.dtype, device=robot.device)
+    return robot.occupancy
 
 
 def scene_sets_from_numpy(obstacle, target, device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:

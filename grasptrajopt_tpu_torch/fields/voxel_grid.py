@@ -1,10 +1,12 @@
-"""Axis-aligned voxel grid for SDF cost fields.
+"""Axis-aligned voxel grid for SDF cost fields, and the 2-D occupancy
+grid of mobile-base placement.
 
-Port of grasptrajopt_tpu/fields/voxel_grid.py (`VoxelGrid` only). Grid
-construction is host numpy and identical to the JAX package: the
-workspace box (`from_workspace`) or the bounds of a scene cloud
-(`from_points`), each padded by `margin`; `pack` and the lookups act on
-torch tensors.
+Port of grasptrajopt_tpu/fields/voxel_grid.py (`VoxelGrid`,
+`OccupancyGrid2D`). Grid construction is host numpy and identical to the
+JAX package: the workspace box (`from_workspace`) or the bounds of a
+scene cloud (`from_points`, `OccupancyGrid2D.from_points_bounds`), each
+padded by `margin`; `pack`, the offsets and the lookups act on torch
+tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from grasptrajopt_tpu_torch.ops.interp import (
     field_lookup_trilinear_packed,
     pack_corners,
     points_to_offsets,
+    points_to_offsets_2d,
 )
 
 DEFAULT_MARGIN = 0.4
@@ -125,3 +128,52 @@ class VoxelGrid:
             packed, points, self.origin_tensor(points.dtype, points.device),
             self.shape, self.resolution, row_offset=row_offset,
         )
+
+
+@dataclass(frozen=True)
+class OccupancyGrid2D:
+    """2-D x-y occupancy grid for mobile-base placement: a cell is
+    occupied within `epsilon` of a scene point above the floor
+    (GTORobotModel.setup_occupancy_grid)."""
+
+    origin: Tuple[float, float]
+    shape: Tuple[int, int]
+    resolution: float
+
+    @classmethod
+    def from_points_bounds(
+        cls,
+        xys: np.ndarray,
+        margin: float = DEFAULT_MARGIN,
+        resolution: float = DEFAULT_RESOLUTION,
+    ) -> "OccupancyGrid2D":
+        """x over [0, max x], y over the points' span, each padded by
+        `margin`, with np.arange's float-step lengths."""
+        xlim = (0.0, float(np.max(xys[:, 0])))
+        ylim = (float(np.min(xys[:, 1])), float(np.max(xys[:, 1])))
+        xgrid = np.arange(xlim[0] - margin, xlim[1] + margin, resolution)
+        ygrid = np.arange(ylim[0] - margin, ylim[1] + margin, resolution)
+        return cls(
+            origin=(float(xgrid[0]), float(ygrid[0])),
+            shape=(len(xgrid), len(ygrid)),
+            resolution=float(resolution),
+        )
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    def grid_points(self, dtype=np.float32) -> np.ndarray:
+        """All cell corners, row-major: (size, 2), host numpy."""
+        ii, jj = np.meshgrid(np.arange(self.shape[0]), np.arange(self.shape[1]), indexing="ij")
+        idx = np.stack([ii, jj], axis=-1).reshape(-1, 2)
+        return (np.asarray(self.origin) + idx * self.resolution).astype(dtype)
+
+    def offsets(self, points_xy):
+        """Flat offsets (...,) int32 of (..., 2) points (floor + clamp)."""
+        origin = torch.tensor(self.origin, dtype=points_xy.dtype, device=points_xy.device)
+        return points_to_offsets_2d(points_xy, origin, self.shape, self.resolution)
+
+    def lookup(self, grid_flat, points_xy):
+        """Cell values of a flat (size,) grid at (..., 2) points."""
+        return grid_flat[self.offsets(points_xy).long()]

@@ -44,6 +44,17 @@ def points_to_offsets(points, origin, shape: Tuple[int, int, int], resolution):
     return idx[..., 2] + shape[2] * (idx[..., 1] + shape[1] * idx[..., 0])
 
 
+def points_to_offsets_2d(points_xy, origin, shape: Tuple[int, int], resolution):
+    """Flat offsets of (..., 2) points on a 2-D occupancy grid: floor,
+    clamp to the grid as int32, then iy + shape[1] * ix (int32, as the
+    JAX package's)."""
+    u = (points_xy - origin) / resolution
+    idx = torch.floor(u).to(torch.int32)
+    hi = torch.tensor([shape[0] - 1, shape[1] - 1], dtype=torch.int32, device=points_xy.device)
+    idx = torch.minimum(torch.clamp(idx, min=0), hi)
+    return idx[..., 1] + shape[1] * idx[..., 0]
+
+
 def field_lookup_nearest(field_flat, points, origin, shape, resolution):
     """Field value at the floor-indexed cell of each point (zero gradient)."""
     return field_flat[points_to_offsets(points, origin, shape, resolution)]

@@ -8,7 +8,10 @@ bit), visual origins folded into link-frame points, `fk_surface_points`,
 (host numpy points, the grasp pre-filter's gripper model),
 `compute_fk_link_surface_points`, `get_standoff_pose`,
 `setup_workspace_field` / `setup_points_field`, the grid's
-`points_to_offsets(_numpy)` and `compute_plan_cost`.
+`points_to_offsets(_numpy)` and `compute_plan_cost`; and for mobile-base
+placement the 2-D occupancy grid (`setup_occupancy_grid`, built by one
+K3 launch on the card) with `occupancy_cost`, and `tf_base` on the FK
+point helpers.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from grasptrajopt_tpu_torch.fields.voxel_grid import VoxelGrid
+from grasptrajopt_tpu_torch.fields.voxel_grid import OccupancyGrid2D, VoxelGrid
 from grasptrajopt_tpu_torch.models.kinematics import KinematicModel, _host_rt2tr
 from grasptrajopt_tpu_torch.models.mesh import geometry_mesh
 from grasptrajopt_tpu_torch.models.robot import RobotModel, urdf_joint_limits
 from grasptrajopt_tpu_torch.models.urdf import parse_urdf_string
+from grasptrajopt_tpu_torch.ops import nn
 from grasptrajopt_tpu_torch.spatial import transform_points
 
 
@@ -50,6 +54,9 @@ class GTORobotModel(RobotModel):
         self.field_margin = 0.4
         self.grid_resolution = float(grid_resolution)
         self.grid: Optional[VoxelGrid] = None
+        self.occupancy: Optional[OccupancyGrid2D] = None
+        # flat (size,) 0/1 cells in the robot's dtype, on its device
+        self.occupancy_grid: Optional[torch.Tensor] = None
         self.surface_points = {k: np.asarray(v, np.float64) for k, v in surface_points.items()}
         self.surface_normals = {k: np.asarray(v, np.float64) for k, v in surface_normals.items()}
         self.visual_offsets = {k: np.asarray(v, np.float64) for k, v in visual_offsets.items()}
@@ -123,15 +130,18 @@ class GTORobotModel(RobotModel):
             )
         return self._soa_cache[stride]
 
-    def fk_surface_points(self, q, base_position=None):
+    def fk_surface_points(self, q, base_position=None, tf_base=None):
         """All body surface points in the world frame from matrix FK:
-        q (..., ndof) -> (..., P, 3), optionally shifted by a base
-        translation (..., 3)."""
+        q (..., ndof) -> (..., P, 3). Each link's frame is composed behind
+        `tf_base` (4, 4) when given; a base translation (..., 3) is added
+        last."""
         frames = self.fk_all(q)
-        outs = [
-            transform_points(frames[..., fidx, :, :], pts)
-            for fidx, pts in zip(self._surface_frame_idx, self._link_points_local)
-        ]
+        if tf_base is not None:
+            tf_base = torch.as_tensor(tf_base, dtype=self.dtype, device=self.device)
+        outs = []
+        for fidx, pts in zip(self._surface_frame_idx, self._link_points_local):
+            T = frames[..., fidx, :, :]
+            outs.append(transform_points(T if tf_base is None else tf_base @ T, pts))
         world = torch.cat(outs, dim=-2)
         if base_position is not None:
             world = world + base_position[..., None, :]
@@ -161,14 +171,13 @@ class GTORobotModel(RobotModel):
             out.append(w)
         return tuple(out)
 
-    def compute_fk_surface_points(self, q):
-        """All surface points in the world frame at one configuration q
-        (ndof,): host numpy (P, 3). (The JAX method also returns the
-        normals, which no caller reads.)"""
-        frames = self.fk_all(torch.as_tensor(q, dtype=self.dtype, device=self.device))
-        pts = [transform_points(frames[..., fidx, :, :], p)
-               for fidx, p in zip(self._surface_frame_idx, self._link_points_local)]
-        return torch.cat(pts, dim=-2).cpu().numpy()
+    def compute_fk_surface_points(self, q, tf_base=None):
+        """All surface points in the world frame (or in front of `tf_base`
+        (4, 4)) at one configuration q (ndof,): host numpy (P, 3). (The
+        JAX method also returns the normals, which no caller reads.)"""
+        return self.fk_surface_points(
+            torch.as_tensor(q, dtype=self.dtype, device=self.device), tf_base=tf_base
+        ).cpu().numpy()
 
     def visual_tf(self, link: str, q):
         """World transform (..., 4, 4) of a link's visual frame."""
@@ -232,3 +241,58 @@ class GTORobotModel(RobotModel):
         pts = self.fk_surface_points(plan.T, torch.as_tensor(base_position, dtype=self.dtype, device=self.device))
         vals = self.grid.lookup_nearest(torch.as_tensor(sdf_cost, dtype=self.dtype, device=self.device), pts)
         return float(torch.sum(vals)), float(torch.linalg.vector_norm(plan[:, 0] - plan[:, -1]))
+
+    # -- occupancy (mobile base) ----------------------------------------------
+
+    def setup_occupancy_grid(self, points, epsilon: float = 0.02) -> OccupancyGrid2D:
+        """2-D occupancy grid from a scene cloud (N, 3) in the base frame:
+        the grid spans the points above the floor (z > 0.01), and a cell is
+        occupied where its corner at z = 0 lies within `epsilon` of one of
+        them (in the plane). The distances are one K3 launch on the card
+        (exact subtract-squares); the grid corners are float32-rounded, as
+        in the JAX package."""
+        points = np.asarray(points)
+        xys = points[points[:, 2] > 0.01][:, :2]
+        self.occupancy = OccupancyGrid2D.from_points_bounds(
+            xys, margin=self.field_margin, resolution=self.grid_resolution
+        )
+        gp = self.occupancy.grid_points()
+        q3 = np.concatenate([gp, np.zeros((gp.shape[0], 1), gp.dtype)], axis=1)
+        r3 = np.concatenate([xys, np.zeros((xys.shape[0], 1))], axis=1)
+        d2, _ = nn.min_sqdist(
+            torch.as_tensor(q3, dtype=self.dtype, device=self.device),
+            torch.as_tensor(r3, dtype=self.dtype, device=self.device),
+        )
+        self.occupancy_grid = (torch.sqrt(d2) < epsilon).to(self.dtype)
+        return self.occupancy
+
+    @property
+    def occupancy_grid_shape(self):
+        return self.occupancy.shape
+
+    @property
+    def occupancy_grid_size(self) -> int:
+        return self.occupancy.size
+
+    @property
+    def occupancy_grid_origin(self) -> np.ndarray:
+        return np.asarray(self.occupancy.origin).reshape(1, 2)
+
+    def points_to_offsets_occupancy(self, points):
+        """Flat occupancy-grid offsets (...,) int32 of (..., >= 2) points."""
+        return self.occupancy.offsets(
+            torch.as_tensor(points, dtype=self.dtype, device=self.device)[..., :2]
+        )
+
+    def points_to_offsets_occupancy_numpy(self, points) -> np.ndarray:
+        return self.points_to_offsets_occupancy(np.asarray(points)).cpu().numpy()
+
+    def occupancy_cost(self, q, tf_base_inv, occupancy_grid):
+        """Occupied cells under the body points at configuration q
+        (..., ndof) with the robot placed by `tf_base_inv` (4, 4): (...,),
+        a count summed in the robot's dtype (exact in float32 far past
+        2^24 cells)."""
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        pts = self.fk_surface_points(q, tf_base=tf_base_inv)
+        grid = torch.as_tensor(occupancy_grid, dtype=self.dtype, device=self.device)
+        return torch.sum(self.occupancy.lookup(grid, pts[..., :2]), dim=-1)

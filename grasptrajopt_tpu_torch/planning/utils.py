@@ -1,12 +1,13 @@
 """Planning utilities (port of grasptrajopt_tpu/planning/utils.py: the
-data directory and robot configs, :22-41, and the warm start's
-interpolation, :90-95)."""
+data directory and robot configs, :22-41, `rotZ` and `default_pose`,
+:44-61, as host numpy, and the warm start's interpolation, :90-95)."""
 
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,28 @@ def load_robot_config(robot_name: str, data_dir: Optional[str] = None) -> dict:
     path = os.path.join(data_dir or get_data_dir(), "configs", f"{robot_name}.yaml")
     with open(path) as f:
         return yaml.load(f, Loader=yaml.Loader)["robot_cfg"]
+
+
+def rotZ(theta: float) -> np.ndarray:
+    """Homogeneous (4, 4) float64 rotation by theta about z."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array(
+        [[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], dtype=np.float64
+    )
+
+
+def default_pose(robot_model) -> np.ndarray:
+    """Canonical start configuration (ndof,) float32 of fetch or panda;
+    zeros for any other robot (synth7 included), as in the JAX package."""
+    q = np.zeros(robot_model.ndof, dtype=np.float32)
+    if robot_model.name == "fetch":
+        q[2] = 0.4
+        q[3] = 0.009195
+        q[4] = 0.908270
+        q[[5, 6, 7, 8, 9, 10, 11]] = [1.32, 0.7, 0.0, -2.0, 0.0, -0.57, 0.0]
+    elif robot_model.name == "panda":
+        q = np.array([0.0, -1.285, 0, -2.356, 0.0, 1.571, 0.785, 0.0, 0.0], dtype=np.float32)
+    return q
 
 
 def interpolate_waypoints(qc, qs, n: int):

@@ -274,13 +274,15 @@ def evaluate_scenes(
 
 def summary(results: dict) -> dict:
     """The aggregate the harness prints: trials, successes, collisions and
-    the mean stage times."""
+    the mean stage times (entries that are no object record, such as the
+    mobile harness's 'RT_base_new', are skipped)."""
     agg = aggregate_results(results)
     collisions = sum(
         int(bool(rec.get("collision", False)))
         for orderings in results.values()
         for obj in orderings.values()
         for rec in obj.values()
+        if isinstance(rec, dict)
     )
     return {
         "trials": agg["trials"],

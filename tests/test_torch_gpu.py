@@ -518,3 +518,73 @@ def test_synth7_tabletop_trial_on_the_card(cuda, tmp_path):
     assert (plan[opt] >= robot.lower_optimized_joint_limits[:, None] - 1e-6).all()
     assert (plan[opt] <= robot.upper_optimized_joint_limits[:, None] + 1e-6).all()
     assert se.summary(res)["trials"] == 1
+
+
+def _mobile_view(scene_type, size=160):
+    """The mobile harness's view from its parked base (-0.8, 0.3, yaw
+    -0.3) on synth7's mount: every valid point in that base frame (the
+    occupancy build's input), host float32 (N, 3)."""
+    from grasptrajopt_tpu_torch import synthetic_eval_mobile as mobile
+    from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+
+    env = SyntheticSceneEnv(robot_name="panda", scene_type=scene_type, n_objects=5, width=size, height=size)
+    env.setup_scene(10)
+    env.reset_scene()
+    RT_base = mobile.base_pose_matrix(-0.8, 0.3, -0.3)
+    RT_base[2, 3] = env.base_position[2]
+    target = env.TABLE_POS + [0.0, 0.0, env.TABLE_HEIGHT] if scene_type == "tabletop" else env.SHELF_POS
+    depth, _, cam_w, K = env.get_observation(mobile.head_camera_pose(RT_base, target))
+    return DepthPointCloud(depth, K, np.linalg.inv(RT_base) @ cam_w, threshold=np.inf, device="cpu").points
+
+
+@pytest.mark.parametrize("scene_type,resolution", [("tabletop", 0.05), ("shelf", 0.025)])
+def test_occupancy_build_matches_plain(cuda, scene_type, resolution):
+    """setup_occupancy_grid at the mobile harness's full-width shapes (a
+    few thousand cells on the tabletop, ~2e5 on the shelf, where far
+    background points widen the grid): one K3 launch, the grid identical
+    cell for cell to the plain version's on the same CUDA tensors."""
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    pts = _mobile_view(scene_type)
+    robot = make_synthetic_gto_robot(device=cuda, points_per_link=1, grid_resolution=resolution)
+    before = nn.min_sqdist_launches
+    grid = robot.setup_occupancy_grid(pts)
+    torch.cuda.synchronize()
+    assert nn.min_sqdist_launches == before + 1
+    xy = pts[pts[:, 2] > 0.01][:, :2]
+    gp = grid.grid_points()
+    q = torch.as_tensor(np.concatenate([gp, np.zeros((gp.shape[0], 1), np.float32)], axis=1), device=cuda)
+    r = torch.as_tensor(np.concatenate([xy, np.zeros((xy.shape[0], 1))], axis=1), dtype=torch.float32, device=cuda)
+    d2_kernel, _ = nn.min_sqdist(q, r)
+    d2_plain, _ = nn.min_sqdist_reference(q, r)
+    assert float((d2_kernel - d2_plain).abs().max()) <= TOL
+    want = (torch.sqrt(d2_plain) < 0.02).float()
+    assert robot.occupancy_grid.shape == (grid.size,) and torch.equal(robot.occupancy_grid, want)
+    assert 0 < float(want.sum()) < grid.size
+
+
+def test_base_solve_on_the_card_matches_cpu(cuda):
+    """BasePlanner on the card (float32) against the CPU's float64 on the
+    out-of-reach scenario (the default hand pose pushed 0.8 m along +x),
+    both run to convergence (200 LM iterations): the base pose within
+    1e-3 m and 1e-3 rad, the goal reached. At the planner's default 100
+    iterations neither precision has converged along the valley that the
+    weak base-effort term leaves (float64 moves 3e-4 m more by 200,
+    float32 on the CPU 4e-3 m)."""
+    from grasptrajopt_tpu_torch.planning import BasePlanner
+    from grasptrajopt_tpu_torch.testing import SYNTH_DEFAULT_POSE, make_synthetic_gto_robot
+
+    out = {}
+    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+        robot = make_synthetic_gto_robot(device=dev, dtype=dtype, points_per_link=10)
+        RT = robot.get_global_link_transform("hand", torch.as_tensor(SYNTH_DEFAULT_POSE, dtype=dtype, device=dev))
+        RT = RT.double().cpu().numpy()
+        RT[0, 3] += 0.8
+        planner = BasePlanner(robot, "hand", "hand", iterations=200)
+        out[dev.type] = planner.plan_goalset(SYNTH_DEFAULT_POSE, RT[None], verbose=False)
+    (Q, y, err_pos, err_rot, col), (_, y64, _, _, _) = out["cuda"], out["cpu"]
+    assert np.isfinite(Q).all() and y.dtype == np.float64
+    np.testing.assert_allclose(y[:2], y64[:2], atol=1e-3, rtol=0)
+    assert abs(y[2] - y64[2]) <= 1e-3 and -np.pi <= y[2] <= np.pi
+    assert y[0] < -0.2 and err_pos[0] < 0.05 and err_rot[0] < 10.0 and col == 0.0

@@ -89,7 +89,7 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU (the CPU tests pass device="cpu")."""
     import inspect
 
-    from grasptrajopt_tpu_torch import convert, synthetic_eval
+    from grasptrajopt_tpu_torch import convert, synthetic_eval, synthetic_eval_mobile
     from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
     from grasptrajopt_tpu_torch.models.robot import RobotModel
     from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
@@ -102,6 +102,7 @@ def test_entry_points_default_to_the_card():
     ):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert synthetic_eval.make_args([]).device == "cuda"
+    assert synthetic_eval_mobile.make_args([]).device == "cuda"
 
 
 def test_build_models_picks_the_dtype_of_its_device():
@@ -132,7 +133,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 30
+    assert int(proc.stdout.strip()) >= 44
 
 
 def test_synthetic_gripper_matches_the_arm_and_jax():
@@ -156,3 +157,25 @@ def test_synthetic_gripper_matches_the_arm_and_jax():
     assert got.shape == (30, 3)
     np.testing.assert_allclose(got, jg.compute_fk_surface_points(offsets)[0], atol=1e-12, rtol=0)
     np.testing.assert_array_equal(gripper.get_standoff_pose(-0.01, "z"), jg.get_standoff_pose(-0.01, "z"))
+
+
+def test_rotz_and_default_pose_match_jax():
+    """planning/utils.py's host copies: rotZ bit-identical, and
+    default_pose zeros for synth7 (fetch and panda only have a canonical
+    pose), as the JAX mobile harness starts its base solve from it."""
+    from types import SimpleNamespace
+
+    from grasptrajopt_tpu.planning.utils import default_pose as jax_default_pose
+    from grasptrajopt_tpu.planning.utils import rotZ as jax_rotZ
+    from grasptrajopt_tpu_torch.planning.utils import default_pose, rotZ
+
+    for theta in (0.0, 0.3, -2.5, np.pi):
+        np.testing.assert_array_equal(rotZ(theta), jax_rotZ(theta))
+    robot = port_synth(device="cpu", dtype=torch.float64, points_per_link=1)
+    assert robot.name == "synth7"
+    np.testing.assert_array_equal(default_pose(robot), np.zeros(9, np.float32))
+    for name, ndof in (("synth7", 9), ("panda", 9), ("fetch", 14)):
+        model = SimpleNamespace(name=name, ndof=ndof)
+        got, want = default_pose(model), jax_default_pose(model)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)

@@ -143,6 +143,26 @@ def observation(scene_type: str = "tabletop", size: int = 64, views: int = 1, sc
     }
 
 
+def mobile_tabletop_cloud(size: int = 48) -> np.ndarray:
+    """The synthetic tabletop (scene 10) at size x size seen as the mobile
+    harness sees it to place the base: from its parked base (-0.8, 0.3,
+    yaw -0.3) on synth7's mount (the env's base height, 0.7 m); every
+    valid point in that base frame, float64 (N, 3)."""
+    from grasptrajopt_tpu_torch import synthetic_eval_mobile as mobile
+    from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
+    from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+
+    env = SyntheticSceneEnv(robot_name="panda", scene_type="tabletop", n_objects=5, width=size, height=size)
+    env.setup_scene(10)
+    env.reset_scene()
+    RT_base = mobile.base_pose_matrix(-0.8, 0.3, -0.3)
+    RT_base[2, 3] = env.base_position[2]
+    target = env.TABLE_POS + [0.0, 0.0, env.TABLE_HEIGHT]
+    depth, _, cam_w, K = env.get_observation(mobile.head_camera_pose(RT_base, target))
+    cloud = DepthPointCloud(depth, K, np.linalg.inv(RT_base) @ cam_w, threshold=np.inf, device="cpu")
+    return cloud.points.astype(np.float64)
+
+
 def run_escalation_tier(tier: str, monkeypatch, T: int = 12, size: int = 48, n_goals: int = 3):
     """One escalation tier of GraspPipeline (`exact`: points mode; `deep`:
     the deeper field re-solve) in both packages, with the arguments
