@@ -37,12 +37,22 @@ result line:
      1,024 target points), at the JAX pipeline's one-object call (C = 1),
      at ragged sizes, on a set that is all PAD_COORD rows, in the
      index-only mode (K3) under a mask with an all-invalid set, and on
-     exact duplicate points, where the first index must win. d2 within
+     exact duplicate points, where the first index must win, and at the
+     mobile occupancy builds' shapes (C = 1, 2,867 x 6,438 and 211,176 x
+     11,155, cells and points in a plane, shared queries). d2 within
      1e-5 m^2 below 10 m^2 and 1e-6 relative above; the kernel's index
      points at a valid row whose float64 distance is as near (same
      tolerance) as the plain minimum's, so a near-tie the fused
      multiply-adds break the other way passes; the returned point and
-     normal are that row's, bit for bit. Median CUDA-event times of both;
+     normal are that row's, bit for bit. Every case again at each forced
+     cluster size S = 1, 2, 4, 8 (and 16 where the card admits it), bit
+     for bit against the launch plan's output. At the exact tier's
+     passes, the one-object call and the occupancy shapes: the device
+     time of a call on pre-packed rows with the launches queued back to
+     back, the plan and S = 1 in turns (at the occupancy shapes the
+     path's min_sqdist, packing included, beside it), and the plain
+     version's time, each against the bound at 7 FP32 instructions a
+     pair;
   5. slice: the perception-to-plan path of bench_e2e.py (e2e.PerceptionToPlan:
      16 objects of the synthetic tabletop scenes 10/36/48/65 at 160x160, 32
      grasps each, the synthetic 7-DoF arm with 1,000 surface points on its
@@ -161,11 +171,12 @@ result line:
      limits and pinned, each solve against the plain kernel). The tries
      and their col_cost, the base pose, the chosen grasps' errors, one
      base solve's wall time under torch.profiler, K3 at each occupancy
-     shape (lone and queued, against plain and its bound) and the trials'
-     outcomes are printed, not gated;
+     shape on the build's own tensors (as phase 4 times it) and the
+     trials' outcomes are printed, not gated;
  10. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
-     call's time; K3 also at the occupancy builds), and the last line
+     call's time; K2 / K3's times queued, K3 also at the occupancy
+     builds), and the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -188,9 +199,10 @@ KERNEL_SOURCES = ("min_d2", "nearest", "field_lookup")
 # flops, issues once)
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 3.35e13
-# the least K1's function needs a (query, point) pair: three subtracts,
-# three multiply(-add)s (the penalty the first one's addend) and the min
-K1_INSTR_PER_PAIR = 7
+# the least the distance-and-min work of K1, K2 and K3 needs a (query,
+# point) pair: three subtracts, three multiply(-add)s (the penalty the
+# first one's addend) and the min
+INSTR_PER_PAIR = 7
 
 
 def bound_ms(nbytes: float, instructions: float):
@@ -281,9 +293,9 @@ def phase_build():
 
 def k1_bound(B, M, N, q_numel):
     """(ms, by) of one K1 launch: each input read once (queries, the
-    (B, N, 4) rows), the (B, M) output written once, and K1_INSTR_PER_PAIR
+    (B, N, 4) rows), the (B, M) output written once, and INSTR_PER_PAIR
     FP32 instructions for each of the B x M x N pairs."""
-    return bound_ms(4 * (q_numel + 4 * B * N + B * M), K1_INSTR_PER_PAIR * B * M * N)
+    return bound_ms(4 * (q_numel + 4 * B * N + B * M), INSTR_PER_PAIR * B * M * N)
 
 
 def phase_kernel_vs_plain(grid_pts, dev):
@@ -407,7 +419,7 @@ def d2_tolerance(want):
     return torch.where(want < 10.0, torch.full_like(want, NEAR_TOL), NEAR_RTOL * want)
 
 
-def check_nearest(name, q, rT, normals, got, want):
+def check_nearest(name, q, r4, normals, got, want):
     """The kernel's (d2, idx[, pt, nm]) against the plain version's on the
     same inputs; returns max |d2 err| over entries below 10 m^2."""
     import torch
@@ -422,22 +434,22 @@ def check_nearest(name, q, rT, normals, got, want):
     err = (d2k.double() - want64).abs()
     if bool((err > d2_tolerance(want64)).any()):
         raise AssertionError(f"{name}: d2 differs from plain by up to {float(err.max()):.3e}")
-    C, _, N = rT.shape
+    C, N, _ = r4.shape
     M = d2k.shape[1]
     if bool(((idxk < 0) | (idxk >= N)).any()):
         raise AssertionError(f"{name}: index out of range")
     qb = (q if q.dim() == 3 else q[None]).double()
 
     def row_d2(idx):  # float64 distance (plus penalty) of each query to row idx
-        rows = torch.gather(rT, 2, idx.long()[:, None, :].expand(C, 4, M)).double()
-        return ((qb - rows[:, :3].transpose(1, 2)) ** 2).sum(dim=-1) + rows[:, 3]
+        rows = torch.gather(r4, 1, idx.long()[..., None].expand(C, M, 4)).double()
+        return ((qb - rows[..., :3]) ** 2).sum(dim=-1) + rows[..., 3]
 
     dk, dp = row_d2(idxk), row_d2(idxp)
     gap = (dk - dp).abs()
     if bool((gap > d2_tolerance(dp)).any()):
         raise AssertionError(f"{name}: the kernel's nearest row is {float(gap.max()):.3e} m^2 farther than plain's")
     if len(got) == 4:
-        pt = torch.gather(rT[:, :3], 2, idxk.long()[:, None, :].expand(C, 3, M)).transpose(1, 2)
+        pt = torch.gather(r4[..., :3], 1, idxk.long()[..., None].expand(C, M, 3))
         nm = torch.gather(normals, 1, idxk.long()[..., None].expand(C, M, 3))
         if not (torch.equal(got[2], pt) and torch.equal(got[3], nm)):
             raise AssertionError(f"{name}: point / normal are not the rows of the kernel's index")
@@ -445,11 +457,67 @@ def check_nearest(name, q, rT, normals, got, want):
     return float(err[small].max()) if bool(small.any()) else 0.0
 
 
-def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
+def k2_bound(q, r4, with_normals):
+    """(ms, by) of one K2 / K3 launch: the queries, the (C, N, 4) rows and
+    (K2) the (C, N, 3) normals read once, d2 and the index (K2: also the
+    point and its normal) written once, and INSTR_PER_PAIR FP32
+    instructions for each of the C x M x N pairs: the distance-and-min
+    work K1 does, the least the function needs."""
+    C, N, _ = r4.shape
+    M = q.shape[-2]
+    n_in = q.numel() + r4.numel() + (3 * C * N if with_normals else 0)
+    n_out = C * M * (8 if with_normals else 2)
+    return bound_ms(4 * (n_in + n_out), INSTR_PER_PAIR * C * M * N)
+
+
+def time_k2(q, r4, normals, path=None):
+    """K2 / K3 at one launch shape, on pre-packed rows: the device time a
+    call of the plan and of forced S = 1 with the launches queued back to
+    back (queued_ms), in turns; `path` (a call of the path's own wrapper,
+    packing included) queued the same way; the plain version's lone time
+    (CUDA events). Returns {"plan", "queued", "unsplit", "path", "plain",
+    "bound", "by"}."""
+    from grasptrajopt_tpu_torch.ops import nn
+
+    planned_t, unsplit_t, path_t, plain_t = [], [], [], []
+    for _ in range(3):  # in turns: plain, plan, S = 1, path
+        plain_t += cuda_ms(lambda: nn.nearest_batched_reference(q, r4, normals), 1)
+        planned_t.append(queued_ms(lambda: nn.nearest_batched(q, r4, normals)))
+        unsplit_t.append(queued_ms(lambda: nn.nearest_batched(q, r4, normals, split=1)))
+        if path is not None:
+            path_t.append(queued_ms(path))
+    C, N, _ = r4.shape
+    bm, by = k2_bound(q, r4, normals is not None)
+    return {
+        "plan": nn._k2_launch_plan(C, q.shape[-2], N, *nn._k2_card(q.device)),
+        "queued": statistics.median(planned_t), "unsplit": statistics.median(unsplit_t),
+        "path": statistics.median(path_t) if path_t else None, "plain": statistics.median(plain_t),
+        "bound": bm, "by": by,
+    }
+
+
+def k2_time_line(t, C, M, N):
+    """The report of one time_k2 result."""
+    tile_m, S = t["plan"]
+    line = (f"queued {t['queued']:.4f} ms a call ({t['bound'] / t['queued']:.1%} of the bound; plan tile_m "
+            f"{tile_m} S {S}, {C * -(-M // tile_m) * S} blocks), at S = 1 {t['unsplit']:.4f} ms "
+            f"({t['bound'] / t['unsplit']:.1%}); ")
+    if t["path"] is not None:
+        line += f"the path's min_sqdist (packing included) {t['path']:.4f} ms; "
+    return line + (f"plain {t['plain']:.4f} ms; bound {t['bound']:.4f} ms ({t['by']}, 7 a pair); "
+                   f"{C * M * N:.3e} pairs, {C * M * N / t['queued'] * 1e3:.3e} pairs/s")
+
+
+def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000,
+                           occupancy_shapes=((2_867, 6_438), (211_176, 11_155))):
     """K2 and K3 against the plain version; returns {"K2": (max |d2 err|,
-    kernel ms, plain ms, bound ms, bound_by), "K3": (...)}, the times
-    summed over each mode's exact-tier launch shapes. m_tier: one
-    object's queries in the exact tier (goal slots x T x body points)."""
+    queued ms, plain ms, bound ms, bound_by), "K3": (...)}, the times
+    summed over each mode's exact-tier launch shapes (K2: the obstacle
+    and the target pass; K3: the clearance pass). Every case also at each
+    forced cluster size S, bit for bit against the plan's output. m_tier:
+    one object's queries in the exact tier (goal slots x T x body points);
+    occupancy_shapes: (cells, points) of the mobile tabletop and shelf
+    occupancy builds (phase 9's at full width)."""
     import numpy as np
     import torch
 
@@ -463,7 +531,7 @@ def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
     def ref_set(C, N, pad=0.1, valid=None):
-        """(rT, normals): C sets of N points, the last `pad` share of the
+        """(r4, normals): C sets of N points, the last `pad` share of the
         rows PAD_COORD (a fixed-capacity scene set), and an optional
         validity mask with that share of valid rows."""
         pts = rng.uniform(lo, hi, size=(C, N, 3))
@@ -471,71 +539,94 @@ def phase_nearest_vs_plain(grid_pts, dev, m_tier: int = 32 * 50 * 1000):
         nrm = rng.normal(size=(C, N, 3))
         nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
         mask = None if valid is None else f32(rng.uniform(size=(C, N)) < valid).bool()
-        return nn._pack_refT(f32(pts), mask), f32(nrm)
+        return nn._pack_ref4(f32(pts), mask), f32(nrm)
 
     def queries(C, M):
         return f32(rng.uniform(lo - 0.2, hi + 0.2, size=(C, M, 3)))
 
+    def occupancy(M, N):
+        """The occupancy build's inputs at its shape: grid cells and view
+        points in the plane z = 0 (one set, shared queries)."""
+        cells = np.concatenate([rng.uniform(-2.0, 3.0, size=(M, 2)), np.zeros((M, 1))], axis=1)
+        pts = np.concatenate([rng.uniform(-2.0, 3.0, size=(N, 2)), np.zeros((N, 1))], axis=1)
+        return f32(cells), f32(pts)
+
     big_q = queries(16, m_tier)
-    cases = []  # (name, mode, q, rT, normals, timed)
+    cases = []  # (name, mode, q, r4, normals, timed: None, "record" or "shape")
     obst = ref_set(16, 4096)
-    cases.append(("K2 exact tier obstacle pass C=16 M=1.6M N=4096", "K2", big_q, *obst, True))
-    cases.append(("K2 exact tier target pass C=16 M=1.6M N=1024", "K2", big_q, *ref_set(16, 1024), True))
-    cases.append(("K2 one-object call C=1 M=1.6M N=4096", "K2", big_q[:1].contiguous(), *ref_set(1, 4096), False))
+    cases.append(("K2 exact tier obstacle pass C=16 M=1.6M N=4096", "K2", big_q, *obst, "record"))
+    cases.append(("K2 exact tier target pass C=16 M=1.6M N=1024", "K2", big_q, *ref_set(16, 1024), "record"))
+    cases.append(("K2 one-object call C=1 M=1.6M N=4096", "K2", big_q[:1].contiguous(), *ref_set(1, 4096), "shape"))
     for C, M, N in ((3, 1, 1), (2, 1025, 4097), (5, 1000, 1000), (2, 2049, 2048)):
-        cases.append((f"K2 ragged C={C} M={M} N={N}", "K2", queries(C, M), *ref_set(C, N, pad=0.0), False))
+        cases.append((f"K2 ragged C={C} M={M} N={N}", "K2", queries(C, M), *ref_set(C, N, pad=0.0), None))
     shared_q = f32(rng.uniform(lo, hi, size=(777, 3)))
-    cases.append(("K2 shared queries C=3 M=777 N=3000", "K2", shared_q, *ref_set(3, 3000), False))
+    cases.append(("K2 shared queries C=3 M=777 N=3000", "K2", shared_q, *ref_set(3, 3000), None))
     all_pad = ref_set(2, 2100)
-    all_pad[0][1, :3] = PAD_COORD  # set 1: every row is padding
-    cases.append(("K2 all-PAD_COORD set C=2 M=3000 N=2100", "K2", queries(2, 3000), *all_pad, False))
+    all_pad[0][1, :, :3] = PAD_COORD  # set 1: every row is padding
+    cases.append(("K2 all-PAD_COORD set C=2 M=3000 N=2100", "K2", queries(2, 3000), *all_pad, None))
     cases.append(("K3 exact tier obstacle pass, masked C=16 M=1.6M N=4096", "K3", big_q,
-                  ref_set(16, 4096, valid=0.9)[0], None, True))
+                  ref_set(16, 4096, valid=0.9)[0], None, "record"))
     invalid, _ = ref_set(4, 3000, pad=0.0, valid=0.6)
-    invalid[2, 3] = nn.PENALTY_BIG  # set 2: every point invalid
-    cases.append(("K3 masked, one all-invalid set C=4 M=5000 N=3000", "K3", queries(4, 5000), invalid, None, False))
+    invalid[2, :, 3] = nn.PENALTY_BIG  # set 2: every point invalid
+    cases.append(("K3 masked, one all-invalid set C=4 M=5000 N=3000", "K3", queries(4, 5000), invalid, None, None))
+    occ = {}
+    for st, (M, N) in zip(("tabletop", "shelf"), occupancy_shapes):
+        occ[st] = occupancy(M, N)
+        cases.append((f"K3 {st} occupancy build C=1 M={M} N={N}", "K3", occ[st][0],
+                      nn._pack_ref4(occ[st][1][None]), None, st))
     base = rng.uniform(lo, hi, size=(2, 3000, 3))
-    dup = nn._pack_refT(f32(np.concatenate([base, base], axis=1)))  # row n and n + 3000 coincide
+    dup = nn._pack_ref4(f32(np.concatenate([base, base], axis=1)))  # row n and n + 3000 coincide
     dup_n = f32(np.concatenate([np.tile([0.0, 0.0, 1.0], (2, 3000, 1)), np.tile([0.0, 0.0, -1.0], (2, 3000, 1))], axis=1))
     dup_q = f32(np.concatenate([base + 1e-3, rng.uniform(lo, hi, size=(2, 1000, 3))], axis=1))
-    cases.append(("K2 exact duplicates C=2 M=4000 N=6000", "K2", dup_q, dup, dup_n, False))
+    cases.append(("K2 exact duplicates C=2 M=4000 N=6000", "K2", dup_q, dup, dup_n, None))
 
+    sms, blocks_sm, max_split = nn._k2_card(dev)
+    splits = [1, 2, 4, 8] + ([16] if max_split == 16 else [])
+    print(f"[nearest] K2 / K3 on {sms} SMs, {blocks_sm} resident blocks of {nn.K2_TILE_M} queries an SM "
+          f"(the occupancy API, no share resident); clusters of up to {max_split}; the launch plan aims for "
+          f"{nn.K2_WAVES} x {sms} x {blocks_sm} blocks")
     out = {"K2": [0.0, 0.0, 0.0, 0.0, None], "K3": [0.0, 0.0, 0.0, 0.0, None]}
-    for name, mode, q, rT, normals, timed in cases:
-        got = nn.nearest_batched(q, rT, normals)
-        want = nn.nearest_batched_reference(q, rT, normals)
+    for name, mode, q, r4, normals, timed in cases:
+        got = nn.nearest_batched(q, r4, normals)
+        want = nn.nearest_batched_reference(q, r4, normals)
         torch.cuda.synchronize()
-        err = check_nearest(name, q, rT, normals, got, want)
-        if rT is all_pad[0] and not bool((got[1][1] == 0).all()):
+        err = check_nearest(name, q, r4, normals, got, want)
+        if r4 is all_pad[0] and not bool((got[1][1] == 0).all()):
             raise AssertionError("K2: on an all-PAD_COORD set the first row must win")
-        if rT is invalid and not (bool((got[0][2] >= 1e38).all()) and bool((got[1][2] == 0).all())):
+        if r4 is invalid and not (bool((got[0][2] >= 1e38).all()) and bool((got[1][2] == 0).all())):
             raise AssertionError("K3: an all-invalid set must give the penalty and index 0")
-        if rT is dup and not (bool((got[1] < 3000).all()) and bool((got[3][..., 2] == 1.0).all())):
+        if r4 is dup and not (bool((got[1] < 3000).all()) and bool((got[3][..., 2] == 1.0).all())):
             raise AssertionError("K2: of two coincident points the first index must win")
+        del want
+        for split in splits:  # every forced cluster size: the plan's bits
+            forced = nn.nearest_batched(q, r4, normals, split=split)
+            if not all(torch.equal(a, b) for a, b in zip(forced, got)):
+                raise AssertionError(f"{name}: split {split} differs from the plan's output")
+            del forced
         rec = out[mode]
         rec[0] = max(rec[0], err)
-        line = f"[nearest] {name}: max |d2 err| {err:.3e} m^2 (below 10 m^2)"
-        if timed:
-            kernel_t, plain_t = [], []
-            for _ in range(3):  # in turns: plain, kernel
-                plain_t += cuda_ms(lambda: nn.nearest_batched_reference(q, rT, normals), 1)
-                kernel_t += cuda_ms(lambda: nn.nearest_batched(q, rT, normals), 1)
-            km, pm = statistics.median(kernel_t), statistics.median(plain_t)
-            pairs = q.shape[-2] * rT.shape[0] * rT.shape[2]
-            # about 10 FP32 instructions a pair (the squared distance with
-            # its penalty, the compare and two selects that carry the
-            # index); outputs d2 and index, with normals also the point
-            # and its normal
-            n_out = q.shape[-2] * rT.shape[0] * (2 if normals is None else 8)
-            n_in = q.numel() + rT.numel() + (0 if normals is None else normals.numel())
-            bm, rec[4] = bound_ms(4 * (n_in + n_out), 10 * pairs)
-            rec[1], rec[2], rec[3] = rec[1] + km, rec[2] + pm, rec[3] + bm
-            line += (f"; median kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.4f} ms; "
-                     f"{pairs:.3e} pairs, {pairs / km * 1e3:.3e} pairs/s")
-        print(line)
-        del got, want
+        C, N, _ = r4.shape
+        M = q.shape[-2]
+        tile_m, S = nn._k2_launch_plan(C, M, N, sms, blocks_sm, max_split)
+        line = (f"[nearest] {name}: plan tile_m {tile_m} S {S}; max |d2 err| {err:.3e} m^2 (below 10 m^2); "
+                f"S = {', '.join(map(str, splits))} bit-identical to the plan")
+        if timed is not None:
+            path = None
+            if timed in occ:
+                cells, pts = occ[timed]
+                path = lambda cells=cells, pts=pts: nn.min_sqdist(cells, pts)  # noqa: E731
+            t = time_k2(q, r4, normals, path)
+            line += "; " + k2_time_line(t, C, M, N)
+            blocks, clusters = nn.nearest_occupancy(dev, N, tile_m, S)
+            line += f"; occupancy {blocks} blocks/SM, {clusters} clusters at once"
+            if timed == "record":
+                rec[1], rec[2], rec[3], rec[4] = rec[1] + t["queued"], rec[2] + t["plain"], rec[3] + t["bound"], t["by"]
+        print(line, flush=True)
+        del got
     print(f"[nearest] K2 max |d2 err| {out['K2'][0]:.3e}, K3 {out['K3'][0]:.3e} m^2 over {len(cases)} cases "
-          f"(tolerance {NEAR_TOL:g} m^2 below 10 m^2, {NEAR_RTOL:g} relative above)")
+          f"(tolerance {NEAR_TOL:g} m^2 below 10 m^2, {NEAR_RTOL:g} relative above); the exact tier's K2 "
+          f"passes {out['K2'][1]:.4f} ms queued, bound {out['K2'][3]:.4f} ms ({out['K2'][3] / out['K2'][1]:.1%}); "
+          f"K3's clearance {out['K3'][1]:.4f} ms, bound {out['K3'][3]:.4f} ms ({out['K3'][3] / out['K3'][1]:.1%})")
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -757,13 +848,13 @@ def phase_pergoal(path, obs, out, dev):
     # the exact tier's final obstacle distances: the kernel against plain
     sets = pg["sets"]
     pts = robot.fk_surface_points(pg["Q_exact"], out["inputs"]["base_position"]).reshape(C, -1, 3).contiguous()
-    rT = nn._pack_refT(sets["scene_points"])
+    r4 = nn._pack_ref4(sets["scene_points"])
     err = check_nearest(
-        "exact tier final obstacle distances", pts, rT, sets["scene_normals"],
-        nn.nearest_batched(pts, rT, sets["scene_normals"]),
-        nn.nearest_batched_reference(pts, rT, sets["scene_normals"]),
+        "exact tier final obstacle distances", pts, r4, sets["scene_normals"],
+        nn.nearest_batched(pts, r4, sets["scene_normals"]),
+        nn.nearest_batched_reference(pts, r4, sets["scene_normals"]),
     )
-    del pts, rT
+    del pts, r4
     # the rescue tier's final fields: K4 against plain at the shapes, the
     # layout and the per-problem row bases of its three launches
     base = out["inputs"]["base_position"].expand(C, 3).repeat_interleave(G, dim=0)[:, None, :]
@@ -1386,11 +1477,11 @@ def check_trial_solves(name, trial):
         else:
             C = shared["scene_points"].shape[0]
             pts = torch.stack(planner_points(robot, Q_full, base), dim=-1).reshape(C, -1, 3).contiguous()
-            rT = nn._pack_refT(shared["scene_points"])
+            r4 = nn._pack_ref4(shared["scene_points"])
             err = check_nearest(
-                f"{name} {tier} final obstacle distances", pts, rT, shared["scene_normals"],
-                nn.nearest_batched(pts, rT, shared["scene_normals"]),
-                nn.nearest_batched_reference(pts, rT, shared["scene_normals"]),
+                f"{name} {tier} final obstacle distances", pts, r4, shared["scene_normals"],
+                nn.nearest_batched(pts, r4, shared["scene_normals"]),
+                nn.nearest_batched_reference(pts, r4, shared["scene_normals"]),
             )
             out.append((tier, Q_full.shape[0], "K2", err))
     return out
@@ -1666,22 +1757,12 @@ def check_occupancy(name, build):
 
 
 def time_occupancy_k3(build):
-    """(lone ms, queued ms, plain ms, bound ms, bound_by) of K3 at one
-    occupancy build's shape: the lone call by CUDA events (the wrapper's
-    host time included), queued by queued_ms (device time); bound as phase
-    4's: ~10 FP32 instructions a pair, the queries, the (1, 4, N) rows, d2
-    and the index."""
+    """K3 at one occupancy build's shape on the build's own CUDA tensors:
+    time_k2 on the packed rows, the path's min_sqdist beside it."""
     from grasptrajopt_tpu_torch.ops import nn
 
-    q, ref = build["query"], build["ref"]
-    kernel_t, plain_t = [], []
-    for _ in range(3):  # in turns: plain, kernel
-        plain_t += cuda_ms(lambda: nn.min_sqdist_reference(q, ref), 1)
-        kernel_t += cuda_ms(lambda: nn.min_sqdist(q, ref), 1)
-    qm = queued_ms(lambda: nn.min_sqdist(q, ref))
-    M, N = q.shape[0], ref.shape[0]
-    bm, by = bound_ms(4 * (3 * M + 4 * N + 2 * M), 10 * M * N)
-    return statistics.median(kernel_t), qm, statistics.median(plain_t), bm, by
+    q, ref = build["query"].contiguous(), build["ref"]
+    return time_k2(q, nn._pack_ref4(ref[None]), None, lambda: nn.min_sqdist(q, ref))
 
 
 def phase_mobile(dev, tabletop_objects: int = 3, shelf_objects: int = 2, points_per_link: int = 100,
@@ -1819,16 +1900,15 @@ def phase_mobile(dev, tabletop_objects: int = 3, shelf_objects: int = 2, points_
 
     total = {"launches": len(builds), "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None}
     for st, build in zip(("tabletop", "shelf"), builds):
-        km, qm, pm, bm, by = time_occupancy_k3(build)
+        t = time_occupancy_k3(build)
         M, N = build["query"].shape[0], build["ref"].shape[0]
-        print(f"[mobile] K3 at the {st} occupancy build (C=1 M={M} N={N}, {M * N:.3e} pairs): lone {km:.4f} ms "
-              f"({bm / km:.1%} of the bound), queued {qm:.4f} ms ({bm / qm:.1%}), plain {pm:.4f} ms, bound "
-              f"{bm:.4f} ms ({by})")
+        print(f"[mobile] K3 at the {st} occupancy build (C=1 M={M} N={N}), on the build's tensors: "
+              + k2_time_line(t, 1, M, N))
         total["err"] = max(total["err"], build["err"])
-        total["ms"] += qm
-        total["plain_ms"] += pm
-        total["bound_ms"] += bm
-        total["bound_by"] = by if total["bound_by"] in (None, by) else "operations"
+        total["ms"] += t["queued"]
+        total["plain_ms"] += t["plain"]
+        total["bound_ms"] += t["bound"]
+        total["bound_by"] = t["by"] if total["bound_by"] in (None, t["by"]) else "operations"
     merged = {f"{st}_10": r["10"] for st, r in results.items()}
     print(f"[mobile] all trials: {json.dumps(mobile.summary(merged))}; phase {time.perf_counter() - t0:.1f} s")
     return total

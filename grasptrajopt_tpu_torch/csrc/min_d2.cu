@@ -44,9 +44,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
+using gto::bulk_load;
+using gto::finish;
+using gto::mbar_init;
+using gto::mbar_wait;
+using gto::pair_d2;
 
 namespace {
 
@@ -59,47 +64,6 @@ constexpr int MAX_TILE_M = MAX_THREADS * QPT;  // 512 queries a block at most
 constexpr int TILE_N = 512;                  // points a tile: 8 KB of float4 rows
 constexpr int STAGES = 3;
 constexpr int UNROLL = 4;                    // points an inner iteration
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// one contiguous span global -> shared, counted on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ float pair_d2(float qx, float qy, float qz, float4 r) {
-  const float dx = qx - r.x;
-  const float dy = qy - r.y;
-  const float dz = qz - r.z;
-  return fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, r.w)));
-}
 
 __global__ void __launch_bounds__(MAX_THREADS)
 min_d2_kernel(const float* __restrict__ q, long long q_batch_stride,
@@ -190,47 +154,7 @@ min_d2_kernel(const float* __restrict__ q, long long q_batch_stride,
 
 cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int B, int M, int tile_m, int split,
                                cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((M + tile_m - 1) / tile_m) * split), (unsigned)B, 1);
-  cfg.blockDim = dim3((unsigned)(tile_m / QPT), 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// the error of the call, with the runtime's last-error state cleared so
-// that no later launch reports it
-int finish(cudaError_t err) {
-  const cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
-}
-
-// Whether a cluster of cfg's shape can be resident on the current device
-// (cudaOccupancyMaxActiveClusters), asked once per device, block size and
-// cluster size: the query costs more host time than a small launch.
-cudaError_t check_clusters(const cudaLaunchConfig_t& cfg) {
-  struct Checked { int device, threads, split; cudaError_t err; };
-  static Checked seen[64];
-  static int n_seen = 0;
-  static std::mutex lock;
-  const std::lock_guard<std::mutex> guard(lock);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const int threads = (int)cfg.blockDim.x, split = (int)cfg.attrs[0].val.clusterDim.x;
-  for (int i = 0; i < n_seen; ++i)
-    if (seen[i].device == device && seen[i].threads == threads && seen[i].split == split) return seen[i].err;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, min_d2_kernel, &cfg);
-  if (err == cudaSuccess && clusters < 1) err = cudaErrorInvalidConfiguration;
-  if (n_seen < 64) seen[n_seen++] = {device, threads, split, err};
-  return err;
+  return gto::cluster_config(attr, (M + tile_m - 1) / tile_m, B, tile_m / QPT, split, 0, stream);
 }
 
 }  // namespace
@@ -249,7 +173,7 @@ int gto_min_d2(const void* q, long long q_batch_stride, const void* r4, void* ou
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = make_config(attr, B, M, tile_m, split, (cudaStream_t)stream);
-  cudaError_t err = check_clusters(cfg);
+  cudaError_t err = gto::check_clusters(min_d2_kernel, cfg);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, min_d2_kernel, (const float*)q, q_batch_stride, (const float4*)r4,
                              (float*)out, M, N);

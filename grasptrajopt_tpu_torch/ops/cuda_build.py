@@ -7,6 +7,9 @@ with nvcc alone (no PyTorch headers, no ninja) into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
+A library is rebuilt when its source or any shared header (`csrc/*.cuh`)
+is newer.
+
 Nothing here runs at import time.
 """
 
@@ -51,10 +54,11 @@ def build(name: str, force: bool = False) -> BuildResult:
     """Compile csrc/<name>.cu for sm_90a unless an up-to-date library exists."""
     src = CSRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *CSRC_DIR.glob("*.cuh")])
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return BuildResult(lib, [], "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
     cmd = [
         nvcc_executable(), "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

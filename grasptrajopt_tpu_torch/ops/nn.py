@@ -13,7 +13,8 @@ K2 and K3 (`nearest_batched`, one kernel `csrc/nearest.cu` in two modes):
 per query, the squared distance to the nearest valid reference point AND
 its index; K2 also returns that point and its normal (points mode's signed
 distance, `signed_distance_with_dir`), K3 (`min_sqdist`) only the pair
-(d2, index) under a validity mask.
+(d2, index) under a validity mask. It reads K1's (C, N, 4) rows and splits
+the cloud the same way (`_k2_launch_plan`).
 
 Each kernel has its plain-torch version beside it (`*_reference`). The
 wrappers take the plain version ONLY for tensors on the CPU; a CUDA
@@ -35,6 +36,7 @@ field pass is ONE kernel launch.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -52,20 +54,11 @@ min_sqdist_launches = 0
 _REFERENCE_CHUNK_ELEMS = 1 << 24  # (batch x queries x points) per plain chunk
 
 
-def _pack_refT(ref, ref_mask=None):
-    """(B, N, 3) [+ (B, N) bool mask] -> (B, 4, N) rows x / y / z /
-    penalty (0 valid, PENALTY_BIG invalid), the layout K2 / K3 read. No
-    padding: the kernel masks the ragged edge itself."""
-    pen = torch.zeros(ref.shape[:-1], dtype=ref.dtype, device=ref.device)
-    if ref_mask is not None:
-        pen = torch.where(ref_mask, pen, torch.full_like(pen, PENALTY_BIG))
-    return torch.cat([ref.transpose(-1, -2), pen[:, None, :]], dim=1).contiguous()
-
-
 def _pack_ref4(ref, ref_mask=None):
     """(B, N, 3) [+ (B, N) bool mask] -> (B, N, 4) rows x, y, z, penalty
-    (0 valid, PENALTY_BIG invalid), the layout K1 reads: 16 bytes a point,
-    so any run of points is one contiguous, aligned span. No padding."""
+    (0 valid, PENALTY_BIG invalid), the layout K1, K2 and K3 read: 16
+    bytes a point, so any run of points is one contiguous, aligned span.
+    No padding: the kernels mask the ragged edge themselves."""
     pen = torch.zeros(ref.shape[:-1] + (1,), dtype=ref.dtype, device=ref.device)
     if ref_mask is not None:
         pen = torch.where(ref_mask[..., None], pen, torch.full_like(pen, PENALTY_BIG))
@@ -95,59 +88,105 @@ def min_d2_batched_reference(q, r4):
     return torch.clamp(out, min=0.0)
 
 
-# K1's launch geometry (csrc/min_d2.cu): a block takes tile_m = threads x
-# K1_QPT queries; a cluster of S blocks splits the cloud into S equal
-# shares, each streamed in K1_TILE_N-point tiles.
+@dataclass(frozen=True)
+class _Geometry:
+    """A cluster-split kernel's launch constants: a block takes tile_m =
+    threads x qpt queries; a cluster of S blocks splits each cloud into S
+    contiguous shares, equal to a point."""
+
+    name: str
+    tile_m: int  # queries a block where the query tiles fill the card
+    min_tile_m: int  # ... and at the least
+    min_share: int  # points a share at the least where S > 1
+    max_split: int  # the largest cluster the kernel takes
+    waves: int  # the grid should cover the card this many times over
+
+
+# K1's launch geometry (csrc/min_d2.cu): 256-query blocks, down to 128
+# where the grid is short; its shares stream in K1_TILE_N-point tiles.
 K1_QPT = 2
 K1_TILE_M = 256  # 128 threads
 K1_MIN_TILE_M = 128  # 64 threads
 K1_TILE_N = 512
 K1_MAX_SPLIT = 8  # the portable cluster size
-K1_WAVES = 2  # the grid should cover the card this many times over
+K1_WAVES = 2
 # resident 256-query blocks an SM holds by nvcc's report (32 registers,
 # 26,648 bytes of shared memory: 8 of the SM's 227 KB); on the card the
 # wrapper asks the occupancy API instead
 K1_BLOCKS_PER_SM = 8
+K1 = _Geometry("K1", K1_TILE_M, K1_MIN_TILE_M, K1_TILE_N, K1_MAX_SPLIT, K1_WAVES)
+
+# K2 / K3's (csrc/nearest.cu): 512-query blocks (128 threads x 4), down
+# to 128; each share streams through a ring of 2 buffers of K2_CHUNK
+# points (a share of at most 2 chunks stays resident);
+# S up to 16, the non-portable cluster size, where the card admits it
+# (`_k2_card`), and shares of at least 256 points.
+K2_QPT = 4
+K2_TILE_M = 512
+K2_MIN_TILE_M = 128
+K2_CHUNK = 512
+K2_SUB = 32  # points a sub-tile of the kernel's argmin record
+K2_MAX_SPLIT = 16
+K2_WAVES = 2
+# resident 512-query blocks an SM holds by nvcc's report (50 registers:
+# 9 blocks of 128 threads); on the card the wrapper asks the occupancy
+# API instead
+K2_BLOCKS_PER_SM = 9
+K2 = _Geometry("K2/K3", K2_TILE_M, K2_MIN_TILE_M, 256, K2_MAX_SPLIT, K2_WAVES)
 
 
-def _k1_launch_plan(B, M, N, sm_count, blocks_per_sm=K1_BLOCKS_PER_SM, split=None):
-    """(tile_m, S) for one K1 launch of B clouds of N points against M
-    queries each, on a card of `sm_count` SMs that holds `blocks_per_sm`
-    K1 blocks each.
+def _cluster_plan(g, B, M, N, sm_count, blocks_per_sm, max_split=None, split=None):
+    """(tile_m, S) for one launch of kernel geometry `g` over B clouds of N
+    points against M queries each, on a card of `sm_count` SMs that holds
+    `blocks_per_sm` of its blocks each and admits clusters of up to
+    `max_split` (default: g.max_split) blocks.
 
     The grid is S x B x ceil(M / tile_m) blocks; the plan aims for
-    K1_WAVES x sm_count x blocks_per_sm of them. It takes the smallest S
-    (a power of two, at most K1_MAX_SPLIT and at most one share per
-    K1_TILE_N points) that reaches the aim with K1_TILE_M-query tiles, so
-    S = 1 where the queries alone fill the card; where S at its largest
-    still leaves the grid short, it halves the query tile, down to
-    K1_MIN_TILE_M. `split` forces S at K1_TILE_M (tests, measurements)."""
+    g.waves x sm_count x blocks_per_sm of them. It takes the smallest S (a
+    power of two, at most max_split and at most one share per g.min_share
+    points) that reaches the aim with g.tile_m-query tiles, so S = 1 where
+    the queries alone fill the card; where S at its largest still leaves
+    the grid short, it halves the query tile, down to g.min_tile_m.
+    `split` forces S at g.tile_m (tests, measurements)."""
     if split is not None:
-        if split not in (1, 2, 4, 8):
-            raise ValueError(f"K1's split must be 1, 2, 4 or 8, got {split}")
-        return K1_TILE_M, split
-    target = K1_WAVES * sm_count * blocks_per_sm
-    max_split = 1
-    while max_split * 2 <= min(K1_MAX_SPLIT, N // K1_TILE_N):
-        max_split *= 2
-    tile_m = K1_TILE_M
+        if split < 1 or split > g.max_split or split & (split - 1):
+            raise ValueError(f"{g.name}'s split must be a power of two up to {g.max_split}, got {split}")
+        return g.tile_m, split
+    max_split = g.max_split if max_split is None else min(max_split, g.max_split)
+    target = g.waves * sm_count * blocks_per_sm
+    top = 1
+    while top * 2 <= min(max_split, N // g.min_share):
+        top *= 2
+    tile_m = g.tile_m
     while True:
         blocks = B * -(-M // tile_m)
         S = 1
-        while S < max_split and blocks * S < target:
+        while S < top and blocks * S < target:
             S *= 2
-        if blocks * S >= target or tile_m == K1_MIN_TILE_M:
+        if blocks * S >= target or tile_m == g.min_tile_m:
             return tile_m, S
         tile_m //= 2
 
 
-def _k1_shares(N, S):
+def _k1_launch_plan(B, M, N, sm_count, blocks_per_sm=K1_BLOCKS_PER_SM, split=None):
+    """K1's (tile_m, S): `_cluster_plan` with K1's geometry, S at most 8."""
+    return _cluster_plan(K1, B, M, N, sm_count, blocks_per_sm, split=split)
+
+
+def _k2_launch_plan(C, M, N, sm_count, blocks_per_sm=K2_BLOCKS_PER_SM, max_split=K2_MAX_SPLIT, split=None):
+    """K2 / K3's (tile_m, S): `_cluster_plan` with their geometry, S at
+    most `max_split` (16 where the card admits it, else 8)."""
+    return _cluster_plan(K2, C, M, N, sm_count, blocks_per_sm, max_split, split)
+
+
+def _shares(N, S):
     """[(n0, n1)]: the points each of the S blocks of a cluster walks, as
-    csrc/min_d2.cu cuts them."""
+    csrc/min_d2.cu and csrc/nearest.cu cut them."""
     return [(N * s // S, N * (s + 1) // S) for s in range(S)]
 
 
 _k1_cards = {}
+_k2_cards = {}
 
 
 def _k1_card(dev):
@@ -156,6 +195,23 @@ def _k1_card(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _k1_cards[dev.index] = (sms, min_d2_occupancy(dev, K1_TILE_M, 1)[0])
     return _k1_cards[dev.index]
+
+
+def _k2_card(dev):
+    """(SMs, resident K2 / K3 blocks an SM holds, the largest cluster it
+    admits: 16 or 8) of CUDA device `dev`. The blocks are counted without
+    a share in shared memory, the plan's fill target where shares are
+    small; 16 counts where a cluster of 16 small-share blocks can be
+    resident."""
+    if dev.index not in _k2_cards:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = nearest_occupancy(dev, 1, K2_TILE_M, 1)[0]
+        try:
+            wide = nearest_occupancy(dev, K2_MAX_SPLIT * K2_CHUNK, K2_MIN_TILE_M, K2_MAX_SPLIT)[1] >= 1
+        except RuntimeError:  # the runtime refuses the cluster size itself
+            wide = False
+        _k2_cards[dev.index] = (sms, blocks, K2_MAX_SPLIT if wide else 8)
+    return _k2_cards[dev.index]
 
 
 def _declare(lib):
@@ -178,22 +234,16 @@ def _declare_nearest(lib):
     lib.gto_nearest.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.gto_nearest.restype = ctypes.c_int
+    lib.gto_nearest_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.gto_nearest_occupancy.restype = ctypes.c_int
     lib.gto_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gto_cuda_error_string.restype = ctypes.c_char_p
-
-
-def _check_shapes(q, rT):
-    if rT.dim() != 3 or rT.shape[1] != 4:
-        raise ValueError(f"rT must be (B, 4, N), got {tuple(rT.shape)}")
-    if q.dim() not in (2, 3) or q.shape[-1] != 3:
-        raise ValueError(f"q must be (M, 3) or (B, M, 3), got {tuple(q.shape)}")
-    if q.dim() == 3 and q.shape[0] != rT.shape[0]:
-        raise ValueError(f"per-cloud queries {tuple(q.shape)} do not match rT {tuple(rT.shape)}")
-    if q.shape[-2] == 0 or rT.shape[2] == 0:
-        raise ValueError("the kernels need at least one query and one reference point")
 
 
 def _check_cuda(name, *tensors):
@@ -207,15 +257,16 @@ def _check_cuda(name, *tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _check_k1_shapes(q, r4):
+def _check_shapes(name, q, r4):
+    """K1-K3 take (B, N, 4) rows and (M, 3) or (B, M, 3) queries."""
     if r4.dim() != 3 or r4.shape[2] != 4:
-        raise ValueError(f"r4 must be (B, N, 4), got {tuple(r4.shape)}")
+        raise ValueError(f"{name}: r4 must be (B, N, 4), got {tuple(r4.shape)}")
     if q.dim() not in (2, 3) or q.shape[-1] != 3:
-        raise ValueError(f"q must be (M, 3) or (B, M, 3), got {tuple(q.shape)}")
+        raise ValueError(f"{name}: q must be (M, 3) or (B, M, 3), got {tuple(q.shape)}")
     if q.dim() == 3 and q.shape[0] != r4.shape[0]:
-        raise ValueError(f"per-cloud queries {tuple(q.shape)} do not match r4 {tuple(r4.shape)}")
+        raise ValueError(f"{name}: per-cloud queries {tuple(q.shape)} do not match r4 {tuple(r4.shape)}")
     if q.shape[-2] == 0 or r4.shape[1] == 0:
-        raise ValueError("K1 needs at least one query and one reference point")
+        raise ValueError(f"{name} needs at least one query and one reference point")
 
 
 def min_d2_batched(q, r4, split=None):
@@ -229,7 +280,7 @@ def min_d2_batched(q, r4, split=None):
     S. Anything else, and a launch the card refuses, raises.
     """
     global min_d2_launches
-    _check_k1_shapes(q, r4)
+    _check_shapes("K1", q, r4)
     B, N, _ = r4.shape
     M = q.shape[-2]
     if split is not None:
@@ -280,21 +331,21 @@ def min_sqdist_d2(query, ref, ref_mask=None):
 # -- K2 / K3: nearest point, its index, normal --------------------------------
 
 
-def nearest_batched_reference(q, rT, normals=None):
-    """Plain-torch K2 / K3: q (M, 3) shared or (C, M, 3) per set; rT
-    (C, 4, N) (see `_pack_refT`); normals (C, N, 3) or None.
+def nearest_batched_reference(q, r4, normals=None):
+    """Plain-torch K2 / K3: q (M, 3) shared or (C, M, 3) per set; r4
+    (C, N, 4) (see `_pack_ref4`); normals (C, N, 3) or None.
 
     Returns d2 (C, M) = max(0, min_n (|q - r_n|^2 + pen_n)) and its first
     argmin idx (C, M) int32; with normals also the nearest point (C, M, 3)
-    and its normal (C, M, 3), copied from rT's rows and `normals`.
+    and its normal (C, M, 3), copied from r4's rows and `normals`.
     Chunked over M like `min_d2_batched_reference`.
     """
-    C, _, N = rT.shape
+    C, N, _ = r4.shape
     qb = q if q.dim() == 3 else q[None]
     M = qb.shape[1]
-    rx, ry, rz, pen = (rT[:, i, None, :] for i in range(4))  # (C, 1, N)
-    d2 = torch.empty((C, M), dtype=rT.dtype, device=rT.device)
-    idx = torch.empty((C, M), dtype=torch.long, device=rT.device)
+    rx, ry, rz, pen = (r4[:, None, :, i] for i in range(4))  # (C, 1, N)
+    d2 = torch.empty((C, M), dtype=r4.dtype, device=r4.device)
+    idx = torch.empty((C, M), dtype=torch.long, device=r4.device)
     chunk = max(1, _REFERENCE_CHUNK_ELEMS // max(C * N, 1))
     for m0 in range(0, M, chunk):
         qc = qb[:, m0 : m0 + chunk]
@@ -307,31 +358,39 @@ def nearest_batched_reference(q, rT, normals=None):
     d2 = torch.clamp(d2, min=0.0)
     if normals is None:
         return d2, idx.to(torch.int32)
-    pt = torch.gather(rT[:, :3], 2, idx[:, None, :].expand(C, 3, M)).transpose(1, 2)
+    pt = torch.gather(r4[..., :3], 1, idx[..., None].expand(C, M, 3))
     nm = torch.gather(normals, 1, idx[..., None].expand(C, M, 3))
     return d2, idx.to(torch.int32), pt, nm
 
 
-def nearest_batched(q, rT, normals=None):
+def nearest_batched(q, r4, normals=None, split=None):
     """K2 (with normals) or K3 (without): see `nearest_batched_reference`
     for shapes and outputs. One launch covers all C sets.
 
     CPU tensors take the plain version. CUDA tensors must be contiguous
-    float32 on one device and launch `csrc/nearest.cu`; anything else
-    raises.
+    float32 on one device, r4 16-byte aligned, and launch
+    `csrc/nearest.cu` once with `_k2_launch_plan`'s geometry; `split`
+    forces the cluster size S (a power
+    of two up to 16); the output is the same bits for every S. Anything
+    else, and a launch the card refuses, raises.
     """
     global nearest_launches, min_sqdist_launches
-    _check_shapes(q, rT)
-    C, _, N = rT.shape
+    name = "K3" if normals is None else "K2"
+    _check_shapes(name, q, r4)
+    C, N, _ = r4.shape
+    M = q.shape[-2]
     if normals is not None and tuple(normals.shape) != (C, N, 3):
         raise ValueError(f"normals must be {(C, N, 3)}, got {tuple(normals.shape)}")
-    tensors = (q, rT) if normals is None else (q, rT, normals)
+    if split is not None:
+        _k2_launch_plan(C, M, N, 1, split=split)  # validates it
+    tensors = (q, r4) if normals is None else (q, r4, normals)
     if all(t.device.type == "cpu" for t in tensors):
-        return nearest_batched_reference(q, rT, normals)
-    name = "K3" if normals is None else "K2"
+        return nearest_batched_reference(q, r4, normals)
     _check_cuda(name, *tensors)
-    M = q.shape[-2]
+    if r4.data_ptr() % 16:
+        raise ValueError(f"{name} takes r4 at a 16-byte aligned address")
     dev = q.device
+    tile_m, S = _k2_launch_plan(C, M, N, *_k2_card(dev), split=split)
     d2 = torch.empty((C, M), dtype=torch.float32, device=dev)
     idx = torch.empty((C, M), dtype=torch.int32, device=dev)
     pt = nm = None
@@ -342,14 +401,16 @@ def nearest_batched(q, rT, normals=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gto_nearest(
-            q.data_ptr(), 3 * M if q.dim() == 3 else 0, rT.data_ptr(),
+            q.data_ptr(), 3 * M if q.dim() == 3 else 0, r4.data_ptr(),
             None if normals is None else normals.data_ptr(),
             d2.data_ptr(), idx.data_ptr(),
             None if pt is None else pt.data_ptr(), None if nm is None else nm.data_ptr(),
-            C, M, N, stream,
+            C, M, N, tile_m, S, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.gto_cuda_error_string(err).decode()}")
+        raise RuntimeError(
+            f"{name} launch (tile_m {tile_m}, split {S}) failed: {lib.gto_cuda_error_string(err).decode()}"
+        )
     if normals is None:
         min_sqdist_launches += 1
         return d2, idx
@@ -357,10 +418,22 @@ def nearest_batched(q, rT, normals=None):
     return d2, idx, pt, nm
 
 
+def nearest_occupancy(dev, N, tile_m, split):
+    """(resident blocks per SM, clusters resident at once) of a K2 / K3
+    launch with this geometry over N-point clouds on CUDA device `dev`."""
+    lib = cuda_build.load("nearest", _declare_nearest)
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.gto_nearest_occupancy(N, tile_m, split, ctypes.byref(blocks), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"K2 / K3 occupancy query failed: {lib.gto_cuda_error_string(err).decode()}")
+    return blocks.value, clusters.value
+
+
 def _batched(points, ref, ref_mask=None):
     """Shape adapter of the public K2 / K3 functions. Batch-first: points
     (C, ..., 3) against C sets ref (C, N, 3); or the JAX package's shapes:
-    points (..., 3) against one set ref (K, 3). Returns (q (C, M, 3), rT,
+    points (..., 3) against one set ref (K, 3). Returns (q (C, M, 3), r4,
     the output's leading shape)."""
     single = ref.dim() == 2
     if single:
@@ -368,13 +441,13 @@ def _batched(points, ref, ref_mask=None):
         ref_mask = None if ref_mask is None else ref_mask[None]
     lead = points.shape[:-1]
     q = points.reshape(ref.shape[0], -1, 3).to(ref.dtype).contiguous()
-    return q, _pack_refT(ref, ref_mask), lead
+    return q, _pack_ref4(ref, ref_mask), lead
 
 
 def _nearest_point_normal(batched_fn, points, ref, normals):
-    q, rT, lead = _batched(points, ref)
-    nb = (normals[None] if normals.dim() == 2 else normals).to(rT.dtype).contiguous()
-    d2, _, pt, nm = batched_fn(q, rT, nb)
+    q, r4, lead = _batched(points, ref)
+    nb = (normals[None] if normals.dim() == 2 else normals).to(r4.dtype).contiguous()
+    d2, _, pt, nm = batched_fn(q, r4, nb)
     return d2.reshape(lead), pt.reshape(lead + (3,)), nm.reshape(lead + (3,))
 
 
@@ -394,15 +467,15 @@ def min_sqdist(query, ref, ref_mask=None):
     """K3: (d2, first argmin int32) of queries against reference sets
     under an optional validity mask ((N,) or (C, N) bool). Shapes as in
     `_batched`. An all-invalid set gives d2 >= 1e38 and index 0."""
-    q, rT, lead = _batched(query, ref, ref_mask)
-    d2, idx = nearest_batched(q, rT)
+    q, r4, lead = _batched(query, ref, ref_mask)
+    d2, idx = nearest_batched(q, r4)
     return d2.reshape(lead), idx.reshape(lead)
 
 
 def min_sqdist_reference(query, ref, ref_mask=None):
     """Plain-torch `min_sqdist`."""
-    q, rT, lead = _batched(query, ref, ref_mask)
-    d2, idx = nearest_batched_reference(q, rT)
+    q, r4, lead = _batched(query, ref, ref_mask)
+    d2, idx = nearest_batched_reference(q, r4)
     return d2.reshape(lead), idx.reshape(lead)
 
 

@@ -1,5 +1,6 @@
 """K1-K4 on the card: the hand-written CUDA kernels against their
-plain-torch versions on the same CUDA tensors; K1 at every cluster split. Marked `gpu`; every test
+plain-torch versions on the same CUDA tensors; K1 and K2 / K3 at every
+cluster split. Marked `gpu`; every test
 skips where there is no CUDA device. Run on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -147,28 +148,28 @@ def _nearest_inputs(dev, C, M, N, seed=0, n_pad=0, valid=None):
     r[:, N - n_pad :] = PAD_COORD
     nrm = torch.nn.functional.normalize(torch.randn((C, N, 3), generator=g), dim=-1)
     mask = None if valid is None else torch.rand((C, N), generator=g) < valid
-    rT = nn._pack_refT(r.to(dev), None if mask is None else mask.to(dev))
-    return q.to(dev), rT, nrm.to(dev)
+    r4 = nn._pack_ref4(r.to(dev), None if mask is None else mask.to(dev))
+    return q.to(dev), r4, nrm.to(dev)
 
 
-def _check_nearest(q, rT, nrm, got, want):
+def _check_nearest(q, r4, nrm, got, want):
     """d2 to tolerance; the kernel's row as near as plain's (float64);
     point and normal bit-equal to that row."""
-    C, _, N = rT.shape
-    M = q.shape[1]
+    C, N, _ = r4.shape
+    qb = q if q.dim() == 3 else q[None]
+    M = qb.shape[1]
     d2k, idxk, d2p, idxp = got[0].double(), got[1].long(), want[0].double(), want[1].long()
     tol = torch.where(d2p < 10, torch.full_like(d2p, TOL), 1e-6 * d2p)
     assert bool(((d2k - d2p).abs() <= tol).all())
     assert bool(((idxk >= 0) & (idxk < N)).all())
 
     def row_d2(idx):
-        rows = torch.gather(rT, 2, idx[:, None, :].expand(C, 4, M)).double()
-        return ((q.double() - rows[:, :3].transpose(1, 2)) ** 2).sum(-1) + rows[:, 3]
+        rows = torch.gather(r4, 1, idx[..., None].expand(C, M, 4)).double()
+        return ((qb.double() - rows[..., :3]) ** 2).sum(-1) + rows[..., 3]
 
     assert bool(((row_d2(idxk) - row_d2(idxp)).abs() <= tol).all())
     if nrm is not None:
-        pt = torch.gather(rT[:, :3], 2, idxk[:, None, :].expand(C, 3, M)).transpose(1, 2)
-        assert torch.equal(got[2], pt)
+        assert torch.equal(got[2], torch.gather(r4[..., :3], 1, idxk[..., None].expand(C, M, 3)))
         assert torch.equal(got[3], torch.gather(nrm, 1, idxk[..., None].expand(C, M, 3)))
 
 
@@ -183,42 +184,82 @@ def _check_nearest(q, rT, nrm, got, want):
     ],
 )
 def test_nearest_kernel_matches_plain(cuda, C, M, N, n_pad, with_normals):
-    q, rT, nrm = _nearest_inputs(cuda, C, M, N, n_pad=n_pad)
+    q, r4, nrm = _nearest_inputs(cuda, C, M, N, n_pad=n_pad)
     normals = nrm if with_normals else None
     k2, k3 = nn.nearest_launches, nn.min_sqdist_launches
-    got = nn.nearest_batched(q, rT, normals)
+    got = nn.nearest_batched(q, r4, normals)
     torch.cuda.synchronize()
     assert (nn.nearest_launches - k2, nn.min_sqdist_launches - k3) == ((1, 0) if with_normals else (0, 1))
-    want = nn.nearest_batched_reference(q, rT, normals)
+    want = nn.nearest_batched_reference(q, r4, normals)
     assert len(got) == len(want) == (4 if with_normals else 2)
-    _check_nearest(q, rT, normals, got, want)
+    _check_nearest(q, r4, normals, got, want)
+
+
+def _occupancy_like(dev, M, N, seed=0):
+    """The occupancy build's inputs at its shapes: grid cells and view
+    points in a plane (z = 0), shared queries."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.cat([torch.rand((M, 2), generator=g) * 3 - 1.5, torch.zeros((M, 1))], dim=1)
+    r = torch.cat([torch.rand((1, N, 2), generator=g) * 3 - 1.5, torch.zeros((1, N, 1))], dim=2)
+    return q.to(dev), nn._pack_ref4(r.to(dev))
+
+
+@pytest.mark.parametrize("split", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("M,N", [(2_867, 6_438), (211_176, 11_155), (3_001, 3 * 8 * 512 + 77), (5_003, 40_011)])
+def test_k3_at_occupancy_and_ragged_shapes_every_split(cuda, M, N, split):
+    """K3 at the mobile occupancy builds' shapes (shared queries, one
+    set), at a ragged N and at a large one (shares of many chunks through
+    the ring, rescans from global memory), at the plan and at each forced
+    S: against plain, one launch each."""
+    q, r4 = _occupancy_like(cuda, M, N)
+    before = nn.min_sqdist_launches
+    got = nn.nearest_batched(q, r4, split=split)
+    torch.cuda.synchronize()
+    assert nn.min_sqdist_launches == before + 1
+    _check_nearest(q, r4, None, got, nn.nearest_batched_reference(q, r4))
+
+
+@pytest.mark.parametrize("C,M,N,shared", [(1, 2_867, 6_438, True), (3, 5_003, 4_096, False), (2, 777, 1_000, False)])
+def test_nearest_every_split_gives_the_same_bits(cuda, C, M, N, shared):
+    """d2, index, point and normal are the plan's bits at every forced
+    cluster size, 16 included where the card admits it."""
+    q, r4, nrm = _nearest_inputs(cuda, C, M, N, seed=9, n_pad=N // 10)
+    if shared:
+        q = q[0].contiguous()
+    planned = nn.nearest_batched(q, r4, nrm)
+    splits = [1, 2, 4, 8] + ([16] if nn._k2_card(q.device)[2] == 16 else [])
+    for split in splits:
+        got = nn.nearest_batched(q, r4, nrm, split=split)
+        for a, b in zip(got, planned):
+            assert torch.equal(a, b), split
 
 
 def test_nearest_all_pad_set_takes_the_first_row(cuda):
-    q, rT, nrm = _nearest_inputs(cuda, 2, 3_000, 2_100, n_pad=100)
-    rT[1, :3] = PAD_COORD  # set 1: every row padding, all exactly tied
-    got = nn.nearest_batched(q, rT, nrm)
-    want = nn.nearest_batched_reference(q, rT, nrm)
+    q, r4, nrm = _nearest_inputs(cuda, 2, 3_000, 2_100, n_pad=100)
+    r4[1, :, :3] = PAD_COORD  # set 1: every row padding, all exactly tied
+    got = nn.nearest_batched(q, r4, nrm)
+    want = nn.nearest_batched_reference(q, r4, nrm)
     torch.cuda.synchronize()
-    _check_nearest(q, rT, nrm, got, want)
+    _check_nearest(q, r4, nrm, got, want)
     assert bool((got[1][1] == 0).all()) and bool(torch.isfinite(got[0][1]).all())
 
 
 def test_min_sqdist_mask_and_all_invalid_set(cuda):
-    q, rT, _ = _nearest_inputs(cuda, 4, 5_000, 3_000, valid=0.6)
-    rT[2, 3] = nn.PENALTY_BIG  # set 2: every point invalid
-    got = nn.nearest_batched(q, rT)
-    want = nn.nearest_batched_reference(q, rT)
-    torch.cuda.synchronize()
-    _check_nearest(q, rT, None, got, want)
-    assert bool((got[0][2] >= 1e38).all()) and bool((got[1][2] == 0).all())
-    valid = rT[:, 3] == 0
-    assert bool(torch.gather(valid[[0, 1, 3]], 1, got[1][[0, 1, 3]].long()).all())
+    q, r4, _ = _nearest_inputs(cuda, 4, 5_000, 3_000, valid=0.6)
+    r4[2, :, 3] = nn.PENALTY_BIG  # set 2: every point invalid
+    want = nn.nearest_batched_reference(q, r4)
+    for split in (None, 1, 4, 8):
+        got = nn.nearest_batched(q, r4, split=split)
+        torch.cuda.synchronize()
+        _check_nearest(q, r4, None, got, want)
+        assert bool((got[0][2] >= 1e38).all()) and bool((got[1][2] == 0).all())
+        valid = r4[..., 3] == 0
+        assert bool(torch.gather(valid[[0, 1, 3]], 1, got[1][[0, 1, 3]].long()).all())
 
 
 def test_nearest_duplicates_first_index_wins(cuda):
-    """F1: of two coincident points (2,048 rows apart, in different
-    shared-memory tiles) the kernel returns the first."""
+    """F1: of two coincident points (3,000 rows apart, in different
+    chunks) the kernel returns the first."""
     g = torch.Generator().manual_seed(3)
     base = torch.rand((2, 3_000, 3), generator=g)
     ref = torch.cat([base, base], dim=1).to(cuda)
@@ -232,18 +273,64 @@ def test_nearest_duplicates_first_index_wins(cuda):
     assert torch.equal(pt, torch.gather(ref, 1, idx.long()[..., None].expand(-1, -1, 3)))
 
 
+@pytest.mark.parametrize("split", [2, 4, 8])
+def test_nearest_duplicates_across_a_share_boundary(cuda, split):
+    """Exact duplicates on both sides of every share boundary of a forced
+    split (row b, a share's first, repeats row b - 3 of the share before),
+    within one sub-tile (b + 5 repeats b + 1) and across a sub-tile
+    boundary (b + 33 repeats b + 30): the lower index wins each time."""
+    N = 4_096
+    g = torch.Generator().manual_seed(split)
+    r = torch.rand((1, N, 3), generator=g)
+    bounds = [s1 for _, s1 in nn._shares(N, split)[:-1]]
+    first = []
+    for b in bounds:
+        for lo, hi in ((b - 3, b), (b + 1, b + 5), (b + 30, b + 33)):
+            r[0, hi] = r[0, lo]
+            first.append(lo)
+    q = torch.cat([r[0, first] + 1e-4, torch.rand((500, 3), generator=g)]).to(cuda)
+    r4 = nn._pack_ref4(r.to(cuda))
+    want = nn.nearest_batched_reference(q, r4)
+    got = nn.nearest_batched(q, r4, split=split)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert got[1][0, : len(first)].tolist() == first  # one set, shared queries
+
+
 def test_nearest_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-    q, rT, nrm = _nearest_inputs(cuda, 2, 100, 100)
+    q, r4, nrm = _nearest_inputs(cuda, 2, 100, 100)
     counts = (nn.nearest_launches, nn.min_sqdist_launches)
     with pytest.raises(TypeError):
-        nn.nearest_batched(q.double(), rT.double(), nrm.double())
+        nn.nearest_batched(q.double(), r4.double(), nrm.double())
     with pytest.raises(ValueError):
-        nn.nearest_batched(q.cpu(), rT, nrm)
+        nn.nearest_batched(q.cpu(), r4, nrm)
     with pytest.raises(ValueError):
-        nn.nearest_batched(q, rT, nrm.cpu())
+        nn.nearest_batched(q, r4, nrm.cpu())
     with pytest.raises(ValueError):
-        nn.nearest_batched(q[:, ::2], rT)  # not contiguous
+        nn.nearest_batched(q[:, ::2], r4)  # not contiguous
+    with pytest.raises(ValueError):  # (C, 4, N): the old transposed layout
+        nn.nearest_batched(q, r4.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError):  # 4 bytes past an aligned address
+        nn.nearest_batched(q, r4.reshape(-1)[1 : 1 + 2 * 99 * 4].view(2, 99, 4))
+    with pytest.raises(ValueError):
+        nn.nearest_batched(q, r4, split=3)
     assert (nn.nearest_launches, nn.min_sqdist_launches) == counts
+
+
+@pytest.mark.parametrize("plan", [(512, 32), (2048, 1)])
+def test_nearest_refused_launch_raises(cuda, monkeypatch, plan):
+    """A geometry the kernel or the card refuses (a cluster beyond 16, a
+    block beyond the launch bounds) raises with the plan in the message;
+    the wrapper never hands back another path's output."""
+    q, r4, nrm = _nearest_inputs(cuda, 1, 5_000, 8_192)
+    monkeypatch.setattr(nn, "_k2_launch_plan", lambda *a, **k: plan)
+    counts = (nn.nearest_launches, nn.min_sqdist_launches)
+    with pytest.raises(RuntimeError, match=f"K2 launch \\(tile_m {plan[0]}, split {plan[1]}\\)"):
+        nn.nearest_batched(q, r4, nrm)
+    assert (nn.nearest_launches, nn.min_sqdist_launches) == counts
+    monkeypatch.undo()
+    torch.cuda.synchronize()  # the refusal left no error behind
+    _check_nearest(q, r4, nrm, nn.nearest_batched(q, r4, nrm), nn.nearest_batched_reference(q, r4, nrm))
 
 
 # -- K4: the packed-row field lookup ------------------------------------------

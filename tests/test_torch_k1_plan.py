@@ -46,7 +46,7 @@ def test_plan_splits_cover_the_cloud(name):
     tile_m, S = pnn._k1_launch_plan(B, M, N, H100_SMS)
     assert S in (1, 2, 4, 8)
     assert pnn.K1_MIN_TILE_M <= tile_m <= pnn.K1_TILE_M and tile_m % pnn.K1_QPT == 0
-    shares = pnn._k1_shares(N, S)
+    shares = pnn._shares(N, S)
     assert len(shares) == S and shares[0][0] == 0 and shares[-1][1] == N
     assert all(shares[i][1] == shares[i + 1][0] for i in range(S - 1))
     sizes = [b - a for a, b in shares]
@@ -112,8 +112,9 @@ def test_forced_split_on_the_cpu_is_the_plain_version(split):
 
 def test_wrapper_refuses_the_transposed_layout():
     q = torch.zeros((4, 3))
+    rT = pnn._pack_ref4(torch.ones((1, 5, 3))).transpose(1, 2).contiguous()  # (B, 4, N)
     with pytest.raises(ValueError):
-        pnn.min_d2_batched(q, pnn._pack_refT(torch.ones((1, 5, 3))))  # (B, 4, N): K2 / K3's layout
+        pnn.min_d2_batched(q, rT)
 
 
 @pytest.mark.parametrize("B,N,masked", [(1, 1, False), (2, 300, True), (3, 1_030, True)])
