@@ -173,7 +173,30 @@ result line:
      base solve's wall time under torch.profiler, K3 at each occupancy
      shape on the build's own tensors (as phase 4 times it) and the
      trials' outcomes are printed, not gated;
- 10. result: the nvidia-smi line, one JSON line of kernel records (with
+ 10. builder (grasptrajopt_tpu_torch.opt: the DSL, the AL-SQP, ADMM and
+     SciPy solvers; models/dynamics; fields/sdf_program), no kernel on
+     its path: planar IK (planar_ik.solve: the LM solve on the card and
+     SLSQP, both within 1e-4 of the target); the grasp trajectory NLP
+     through the DSL at full width (testing.make_dsl_trajectory_problem:
+     synth7 at 100 points per link, T = 50, 693 decision variables,
+     Euler coupling, initial state, joint limits; goal point-match and
+     standoff, trilinear field and velocity costs on
+     make_synthetic_scene_field; float64), held to the JAX package's
+     full-scale builder test: (a) the DSL cost at the structured
+     GTOPlanner(iterations=80) solution equals that solver's cost to 1e-6
+     relative (the structured solve in float64, its field looked up by
+     K4's plain version: K4 takes float32 only), (b) ALSQPSolver at 8 x 12
+     iterations: violation below 1e-4 with no named violation above it,
+     cost at most 1.05 x the structured one, the start within 1e-4 of qc,
+     the joint limits within 1e-6; the solve runs with every launch count
+     at 0 and must launch no kernel; its wall time, device time and ops
+     (torch.profiler, a second solve, checked too), busy share and peak
+     memory are printed; the SDF program's value and gradient against K4
+     on 131,072 float32 points (LOOKUP_TOL), its Hessian symmetric with
+     zero pure second derivatives; 16 equality-constrained QPs of 256
+     variables through batched ADMM against their KKT solves (1e-4); the
+     double pendulum's rnea against M qdd + C + g (1e-10);
+ 11. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
      call's time; K2 / K3's times queued, K3 also at the occupancy
      builds), and the last line
@@ -1914,6 +1937,250 @@ def phase_mobile(dev, tabletop_objects: int = 3, shelf_objects: int = 2, points_
     return total
 
 
+# the builder phase's limits: the DSL trajectory NLP (the JAX package's
+# full-scale builder test's own checks) ...
+BUILDER_RTOL = 1e-6  # the DSL cost at the structured solution against that solver's cost
+BUILDER_VIOL = 1e-4  # AL-SQP constraint violation, named violations and the pinned start
+BUILDER_COST_RATIO = 1.05  # the AL-SQP cost against the structured solver's
+BUILDER_LIMIT_TOL = 1e-6  # joint limits of the AL-SQP plan
+# ... the batched ADMM QPs against their KKT solves, and inverse dynamics
+ADMM_TOL = 1e-4
+DYN_TOL = 1e-10
+
+
+def launch_counts() -> dict:
+    from grasptrajopt_tpu_torch.ops import interp, nn
+
+    return {"K1": nn.min_d2_launches, "K2": nn.nearest_launches - nn.min_sqdist_launches,
+            "K3": nn.min_sqdist_launches, "K4": interp.field_lookup_launches}
+
+
+def reset_launch_counts() -> None:
+    from grasptrajopt_tpu_torch.ops import interp, nn
+
+    nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+
+
+def check_dsl_solve(name, robot, sol, stats, violated, qc_opt, c_ref):
+    """The full-scale builder test's checks (b) on one AL-SQP solution."""
+    import numpy as np
+
+    Q = sol[f"{robot.get_name()}/q"]
+    n = robot.num_opt_joints
+    lo, hi = robot.lower_optimized_joint_limits, robot.upper_optimized_joint_limits
+    problems = []
+    if not np.isfinite(Q).all():
+        problems.append("non-finite plan")
+    if not stats["constraint_violation"] < BUILDER_VIOL:
+        problems.append(f"constraint violation {stats['constraint_violation']:.3e}")
+    if violated:
+        problems.append(f"violated constraints {violated}")
+    if not sol["f"] <= BUILDER_COST_RATIO * c_ref:
+        problems.append(f"cost {sol['f']:.6f} above {BUILDER_COST_RATIO} x {c_ref:.6f}")
+    start = float(np.abs(Q[:n, 0] - qc_opt).max())
+    if not start <= BUILDER_VIOL:
+        problems.append(f"start {start:.3e} from qc")
+    if not ((Q[:n].min(axis=1) >= lo - BUILDER_LIMIT_TOL).all() and (Q[:n].max(axis=1) <= hi + BUILDER_LIMIT_TOL).all()):
+        problems.append("joint limits")
+    if problems:
+        raise AssertionError(f"{name}: " + "; ".join(problems))
+
+
+def phase_builder(dev, points_per_link: int = 100, T: int = 50, config=None, sdf_points: int = 131_072,
+                  qp_shape=(16, 256, 32)):
+    """The builder stack (grasptrajopt_tpu_torch.opt: OptimizationBuilder,
+    the AL-SQP, ADMM and SciPy solvers; models/dynamics; the SDF program)
+    on the card: planar IK (LM and SLSQP within 1e-4 of the target); the
+    DSL trajectory NLP at full width (formulation check against the
+    structured planner, then the AL-SQP solve, counted, timed and
+    profiled); the SDF program against K4 on `sdf_points` points; a batch
+    of equality-constrained QPs through ADMM against their KKT solves; the
+    double pendulum's rnea against M qdd + C + g."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from grasptrajopt_tpu_torch import planar_ik
+    from grasptrajopt_tpu_torch.fields import sdf_value_jac_hess
+    from grasptrajopt_tpu_torch.models import RobotModel
+    from grasptrajopt_tpu_torch.models.dynamics import coriolis_vector, gravity_vector, mass_matrix
+    from grasptrajopt_tpu_torch.ops import interp
+    from grasptrajopt_tpu_torch.opt import ALSQPConfig, ALSQPSolver, solve_qp_admm
+    from grasptrajopt_tpu_torch.planning import gto_planner
+    from grasptrajopt_tpu_torch.testing import (
+        DOUBLE_PENDULUM_URDF,
+        SYNTH_DEFAULT_POSE,
+        SYNTH_LINK_EE,
+        SYNTH_LINK_GRIPPER,
+        make_dsl_trajectory_problem,
+        make_synthetic_goal,
+        make_synthetic_gto_robot,
+        make_synthetic_scene_field,
+    )
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+
+    # planar IK: the LM solve on the card, SLSQP on the host with the
+    # derivatives from the card
+    ik = planar_ik.solve(dev)
+    ik_err = {}
+    for label, key in (("LM", "reached"), ("SLSQP", "reached_slsqp")):
+        ik_err[label] = float(np.linalg.norm(ik[key] - np.asarray(planar_ik.TARGET)))
+        if not ik_err[label] < planar_ik.REACH_TOL:
+            raise AssertionError(f"planar IK: the {label} solution misses the target by {ik_err[label]:.3e}")
+    print(f"[builder] planar IK: LM {ik['lm'][0]} (reach error {ik_err['LM']:.3e}), SLSQP {ik['slsqp'][0]} "
+          f"({ik_err['SLSQP']:.3e}); both within {planar_ik.REACH_TOL}")
+
+    # the DSL trajectory NLP at full width, float64
+    robot = make_synthetic_gto_robot(device=dev, dtype=f64, points_per_link=points_per_link)
+    field = make_synthetic_scene_field(robot)
+    qc = SYNTH_DEFAULT_POSE.astype(np.float64)
+    prob = make_dsl_trajectory_problem(robot, field, make_synthetic_goal(0), qc, T=T)
+    n_opt = robot.num_opt_joints
+    if prob.opt.nx != n_opt * T + n_opt * (T - 1):
+        raise AssertionError(f"the DSL NLP has {prob.opt.nx} decision variables")
+    qc_opt = qc[robot.optimized_joint_indexes]
+
+    # the structured reference (GTOPlanner, 80 iterations) in float64: K4
+    # takes float32 only, so here the planner looks its field up with K4's
+    # plain version, named explicitly
+    planner = gto_planner.GTOPlanner(robot, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER, iterations=80, T=T)
+    solve_ref = planner.setup_optimization(1, True, "z").solve_batch_shared
+    qc_t = torch.as_tensor(qc_opt, dtype=f64, device=dev)
+    field_t = torch.as_tensor(field, dtype=f64, device=dev)
+    params = {
+        "q_param": torch.as_tensor(qc[robot.parameter_joint_indexes], dtype=f64, device=dev)[None],
+        "tf_goal": torch.as_tensor(make_synthetic_goal(0), dtype=f64, device=dev)[None, None],
+        "goal_mask": torch.ones((1, 1), dtype=torch.bool, device=dev),
+        "base_position": torch.zeros((1, 3), dtype=f64, device=dev),
+    }
+    reset_launch_counts()
+    t_ref = time.perf_counter()
+    with mock.patch.object(gto_planner, "field_lookup_packed_soa_grad",
+                           interp.field_lookup_packed_soa_grad_reference):
+        Q_ref, c_ref, _ = solve_ref(qc_t[None], qc_t.expand(T - 2, -1)[None], params,
+                                    {"packed_fields": planner.field_table(field_t, field_t)})
+    c_ref = float(c_ref[0])
+    t_ref = time.perf_counter() - t_ref
+    if any(launch_counts().values()):
+        raise AssertionError(f"the float64 structured reference launched kernels: {launch_counts()}")
+
+    cfg = config or ALSQPConfig(outer_iterations=8, inner_iterations=12)
+    solver = ALSQPSolver(prob.opt).setup(prob.lo, prob.hi, cfg)
+    solver.reset_initial_seed(prob.seed)
+    solver.reset_parameters(prob.params)
+
+    # (a) the DSL states the structured planner's objective
+    q_blocks = Q_ref[0].T
+    x_ref = prob.opt.x_layout.vec(
+        {robot.state_optimized_name(0): q_blocks,
+         robot.state_optimized_name(1): (q_blocks[:, 1:] - q_blocks[:, :-1]) / prob.dt},
+        f64, dev,
+    )
+    p = prob.opt.p_layout.vec(prob.params, f64, dev)
+    f_ref = solver.evaluate_cost(xvec=x_ref)
+    rel = abs(f_ref - c_ref) / abs(c_ref)
+    if not rel <= BUILDER_RTOL:
+        raise AssertionError(f"the DSL cost at the structured solution {f_ref!r} differs from the solver's "
+                             f"{c_ref!r} by {rel:.3e} relative")
+    print(f"[builder] DSL NLP: synth7 at {points_per_link} points per link ({robot.num_surface_points} surface "
+          f"points), T = {T}, {prob.opt.nx} decision variables, {prob.opt.h(x_ref, p).shape[0]} "
+          f"equalities, {prob.opt.g(x_ref, p).shape[0]} inequalities, float64; (a) the DSL cost at "
+          f"the structured solution {f_ref:.9f} against the structured solver's {c_ref:.9f} (relative "
+          f"{rel:.3e}, limit {BUILDER_RTOL}; the structured solve {t_ref:.2f} s)")
+
+    # (b) the AL-SQP solve: once for the wall clock, once under the profiler
+    solves = []
+
+    def solve():
+        sol = solver.solve()
+        solves.append((sol, solver.stats()))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    base_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = profile_trial(solve)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the AL-SQP path launched kernels: {counts}")
+    for i, (sol, stats) in enumerate(solves):
+        x = prob.opt.x_layout.vec({k: sol[k] for k in prob.opt.x_layout.shapes}, f64, dev)
+        violated = solver.violated_constraints(xvec=x, tol=BUILDER_VIOL)
+        check_dsl_solve(f"AL-SQP solve {i}", robot, sol, stats, violated, qc_opt, c_ref)
+    sol, stats = solves[0]
+    print(f"[builder] (b) ALSQPSolver, {cfg.outer_iterations} outer x {cfg.inner_iterations} inner iterations: "
+          f"f {sol['f']:.9f} (<= {BUILDER_COST_RATIO} x the structured {c_ref:.9f}: ratio "
+          f"{sol['f'] / c_ref:.4f}), constraint violation {stats['constraint_violation']:.3e}, no named "
+          f"violation above {BUILDER_VIOL}, start within {BUILDER_VIOL} of qc, joint limits held; kernel "
+          f"launches {counts} (this path runs none)")
+    print(f"[builder] AL-SQP solve: wall {prof['wall_ms']:.1f} ms (host clock, synchronized), device "
+          f"{prof['device_ms']:.1f} ms in {prof['device_ops']} device ops (torch.profiler, a second solve), "
+          f"busy {100 * prof['busy']:.1f}% (the profiled solve {prof['seconds']:.1f} s), peak memory {peak / 2**30:.2f} GiB ({(peak - base_bytes) / 2**30:.2f} "
+          f"GiB above the {base_bytes / 2**30:.2f} GiB held before it); top device ops {prof['top']}")
+
+    # the SDF program (autodiff of the plain trilinear lookup) against K4
+    # at the same float32 points: half over the grid, half over the table
+    g = robot.grid
+    field32 = torch.as_tensor(field, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = torch.rand((sdf_points, 3), generator=gen, dtype=torch.float32, device=dev)
+    span = torch.tensor([(s - 1) * g.resolution for s in g.shape], dtype=torch.float32, device=dev)
+    origin = torch.tensor(g.origin, dtype=torch.float32, device=dev)
+    slab_lo = torch.tensor([0.25, -0.35, 0.30], dtype=torch.float32, device=dev)
+    slab_span = torch.tensor([0.70, 0.70, 0.20], dtype=torch.float32, device=dev)
+    half = sdf_points // 2
+    pts = torch.cat([origin + u[:half] * span, slab_lo + u[half:] * slab_span])
+    vals, jac, hess = sdf_value_jac_hess(g, field32, pts)
+    k4 = interp.field_lookup_packed_soa_grad(g.pack(field32), pts[:, 0], pts[:, 1], pts[:, 2], g.origin,
+                                             g.shape, g.resolution)
+    sdf_err = check_lookup("SDF program vs K4", k4, (vals, jac[:, 0], jac[:, 1], jac[:, 2]))
+    asym = (hess - hess.transpose(1, 2)).abs()
+    if bool((asym > LOOKUP_TOL * (1 + hess.abs())).any()):
+        raise AssertionError(f"SDF program: the Hessian is not symmetric (up to {float(asym.max()):.3e})")
+    if bool((torch.diagonal(hess, dim1=1, dim2=2) != 0).any()):
+        raise AssertionError("SDF program: a pure second derivative is not 0 inside its cell")
+    live = int((jac.abs().sum(dim=1) > 0).sum())
+    print(f"[builder] SDF program: {sdf_points} points (float32), value and gradient against K4 max |err| "
+          f"{sdf_err:.3e} (limit {LOOKUP_TOL} x (1 + |value|)), {live} points with a nonzero gradient; the "
+          f"Hessian symmetric (max |H - H^T| {float(asym.max()):.3e}), pure second derivatives 0")
+
+    # ADMM: a batch of equality-constrained QPs against their KKT solves
+    B, n, m = qp_shape
+    cpu_gen = torch.Generator().manual_seed(1)
+    M = torch.randn((B, n, n), generator=cpu_gen, dtype=f64) / n**0.5
+    P = M @ M.mT + torch.eye(n, dtype=f64)
+    q = torch.randn((B, n), generator=cpu_gen, dtype=f64)
+    A = torch.randn((B, m, n), generator=cpu_gen, dtype=f64) / n**0.5
+    b = torch.randn((B, m), generator=cpu_gen, dtype=f64)
+    P, q, A, b = (t.to(dev) for t in (P, q, A, b))
+    x, _, _, res = solve_qp_admm(P, q, A, b, b)
+    kkt = torch.cat([torch.cat([P, A.mT], dim=2),
+                     torch.cat([A, torch.zeros((B, m, m), dtype=f64, device=dev)], dim=2)], dim=1)
+    want = torch.linalg.solve(kkt, torch.cat([-q, b], dim=1))[:, :n]
+    admm_err = float((x - want).abs().max())
+    if not admm_err <= ADMM_TOL:
+        raise AssertionError(f"ADMM: {B} QPs of {n} variables and {m} equalities off their KKT solves by {admm_err:.3e}")
+    print(f"[builder] ADMM: {B} QPs of {n} variables and {m} equalities in one call, max |x - KKT| {admm_err:.3e} "
+          f"(limit {ADMM_TOL}), primal residual {float(res['primal_res'].max()):.3e}")
+
+    # inverse dynamics: rnea = M qdd + C + g on the double pendulum
+    pend = RobotModel(urdf_string=DOUBLE_PENDULUM_URDF, dtype=f64, device=dev)
+    states = torch.rand((4, 3, 2), generator=cpu_gen, dtype=f64).to(dev) * 3.0 - 1.5
+    dyn_err = 0.0
+    for qs, qds, qdds in states:
+        tau = pend.rnea(qs, qds, qdds)
+        split = mass_matrix(pend, qs) @ qdds + coriolis_vector(pend, qs, qds) + gravity_vector(pend, qs)
+        dyn_err = max(dyn_err, float((tau - split).abs().max()))
+    if not dyn_err <= DYN_TOL:
+        raise AssertionError(f"rnea differs from M qdd + C + g by {dyn_err:.3e}")
+    print(f"[builder] double pendulum: rnea against M qdd + C + g at {states.shape[0]} states, max |err| "
+          f"{dyn_err:.3e} (limit {DYN_TOL}); phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1945,6 +2212,7 @@ def main() -> int:
     k4, k4_launches = phase_bench(dev)
     phase_closed_loop(dev)
     occ = phase_mobile(dev)
+    phase_builder(dev)
     print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
           f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
           f"(max |err| there {ik_err:.3e})")

@@ -1,24 +1,37 @@
-"""RobotModel: batched FK with the optimized / parameter joint split.
+"""Model / TaskModel / RobotModel: the user-facing robot abstraction.
 
-Port of grasptrajopt_tpu/models/robot.py (all but the dynamics): joint
-bookkeeping, `extract_*`, `assemble_q`, the limit arrays, `fk_all`,
-`fk_components`, `frame_matrix`, the link transforms, positions,
-rotations, quaternions and RPY angles, the geometric, linear, angular and
-analytical Jacobians, `get_link_axis` and `get_random_joint_positions`.
-The model holds its constants on one explicit device in one dtype; every
-method expects tensors of that dtype on that device.
+Port of grasptrajopt_tpu/models/robot.py. `Model` is a named state block
+with time-derivative orders and limits (states `{name}/{d*}{symbol}`, the
+decision block `/x` and the parameter block `/p`); `TaskModel` a generic
+task state; `RobotModel` a URDF-backed robot: joint bookkeeping (the
+optimized / parameter joint split), `extract_*`, `assemble_q`, the limit
+arrays, `fk_all`, `fk_components`, `frame_matrix`, the link transforms,
+positions, rotations, quaternions and RPY angles, the geometric, linear,
+angular and analytical Jacobians, `get_link_axis`,
+`get_random_joint_positions`, inverse dynamics (`rnea`) and base-frame
+re-rooting (`add_base_frame`). The model holds its constants on one
+explicit device in one dtype; every method expects tensors of that dtype
+on that device.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.func import jacfwd
 
+from grasptrajopt_tpu_torch.models.dynamics import make_inverse_dynamics
 from grasptrajopt_tpu_torch.models.kinematics import JOINT_REVOLUTE, KinematicModel
-from grasptrajopt_tpu_torch.models.urdf import Urdf
+from grasptrajopt_tpu_torch.models.urdf import (
+    Urdf,
+    UrdfJoint,
+    UrdfLink,
+    parse_urdf_file,
+    parse_urdf_string,
+)
+from grasptrajopt_tpu_torch.models.xacro import process_xacro_file
 from grasptrajopt_tpu_torch.spatial import invt, r2quat, r2rpy
 
 _BIG = 1e9
@@ -38,29 +51,113 @@ def urdf_joint_limits(urdf: Urdf, joint_names: Sequence[str]):
     return tuple(out)
 
 
-class RobotModel:
-    """Kinematic tree + joint limits on one device in one dtype.
+class Model:
+    """Named state block with time-derivative orders and limits: `dlim`
+    maps a derivative order to its (lower, upper) arrays."""
 
-    lower / upper / velocity are float64 arrays over the ACTUATED joints;
-    `param_joints` are problem inputs rather than decision variables.
-    """
+    def __init__(self, name, dim, time_derivs, symbol, dlim, T=None, is_discrete=False):
+        self.name = name
+        self.dim = dim
+        self.time_derivs = list(time_derivs)
+        self.symbol = symbol
+        self.dlim = dlim
+        self.T = T
+        self.is_discrete = is_discrete
+
+    def get_name(self):
+        return self.name
+
+    def state_name(self, time_deriv: int) -> str:
+        return self.name + "/" + "d" * time_deriv + self.symbol
+
+    def state_optimized_name(self, time_deriv: int) -> str:
+        return self.state_name(time_deriv) + "/x"
+
+    def state_parameter_name(self, time_deriv: int) -> str:
+        return self.state_name(time_deriv) + "/p"
+
+    def get_limits(self, time_deriv: int):
+        assert time_deriv in self.dlim, (
+            f"limit for time derivative {time_deriv} not specified for model '{self.name}'"
+        )
+        return self.dlim[time_deriv]
+
+    def in_limit(self, x, time_deriv: int):
+        """0-dim bool tensor: every entry of x within the limits."""
+        lo, up = self.get_limits(time_deriv)
+        lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+        up = torch.as_tensor(up, dtype=x.dtype, device=x.device)
+        return torch.logical_and(torch.all(x >= lo), torch.all(x <= up))
+
+
+class TaskModel(Model):
+    """Generic task state (e.g. a mobile base's (x, y, theta))."""
+
+    def __init__(self, name, dim, time_derivs=(0,), symbol="y", dlim=None, T=None, is_discrete=False):
+        super().__init__(name, dim, time_derivs, symbol, {} if dlim is None else dlim, T, is_discrete)
+
+
+class RobotModel(Model):
+    """URDF-backed robot on one device in one dtype, with the optimized /
+    parameter joint split: `param_joints` are problem inputs rather than
+    decision variables. The limit arrays are float64 host arrays."""
 
     def __init__(
         self,
-        kinematics: KinematicModel,
-        param_joints: Sequence[str],
-        lower: np.ndarray,
-        upper: np.ndarray,
-        velocity: np.ndarray,
-        device="cuda",
+        urdf_filename: Optional[str] = None,
+        urdf_string: Optional[str] = None,
+        name: Optional[str] = None,
+        time_derivs: Sequence[int] = (0,),
+        qddlim=None,
+        T: Optional[int] = None,
+        param_joints: Sequence[str] = (),
         dtype=torch.float32,
+        xacro_filename: Optional[str] = None,
+        device="cuda",
     ):
+        if xacro_filename is not None or (urdf_filename is not None and urdf_filename.endswith(".xacro")):
+            self.urdf_filename = xacro_filename or urdf_filename
+            urdf = parse_urdf_string(process_xacro_file(self.urdf_filename))
+        elif urdf_filename is not None:
+            self.urdf_filename = urdf_filename
+            urdf = parse_urdf_file(urdf_filename)
+        elif urdf_string is not None:
+            self.urdf_filename = None
+            urdf = parse_urdf_string(urdf_string)
+        else:
+            raise ValueError("supply a URDF via filename or string")
+        kin = KinematicModel.from_urdf(urdf)
+        lower, upper, velocity = urdf_joint_limits(urdf, kin.actuated_joint_names)
+        self._setup(kin, param_joints, lower, upper, velocity, device, dtype, urdf=urdf, name=name,
+                    time_derivs=time_derivs, qddlim=qddlim, T=T)
+
+    def _setup(self, kinematics, param_joints, lower, upper, velocity, device, dtype, urdf: Optional[Urdf] = None,
+               name=None, time_derivs=(0,), qddlim=None, T=None) -> None:
+        """The model of a flattened kinematic tree with the ACTUATED
+        joints' (lower, upper, velocity) limits, and its URDF where there
+        is one (GTORobotModel builds through here)."""
+        self.urdf = urdf
         self.kinematics = kinematics
-        self.name = kinematics.name
         self.device = torch.device(device)
         self.dtype = dtype
-        self.actuated_joint_names = list(kinematics.actuated_joint_names)
         self.param_joints = list(param_joints)
+        self._lower = np.asarray(lower, dtype=np.float64)
+        self._upper = np.asarray(upper, dtype=np.float64)
+        self._velocity = np.asarray(velocity, dtype=np.float64)
+        self._compile()
+        dlim = {
+            0: (self.lower_optimized_joint_limits, self.upper_optimized_joint_limits),
+            1: (-self.velocity_optimized_joint_limits, self.velocity_optimized_joint_limits),
+        }
+        if qddlim is not None:
+            qddlim = np.broadcast_to(np.asarray(qddlim, dtype=np.float64), (self.ndof,))
+            dlim[2] = (-qddlim, qddlim)
+        Model.__init__(self, name or kinematics.name, self.ndof, time_derivs, "q", dlim, T)
+
+    def _compile(self) -> None:
+        """Joint bookkeeping and the FK functions of `self.kinematics`."""
+        kinematics = self.kinematics
+        self.actuated_joint_names = list(kinematics.actuated_joint_names)
         self.parameter_joint_names = [
             j for j in self.actuated_joint_names if j in self.param_joints
         ]
@@ -73,9 +170,6 @@ class RobotModel:
         self.parameter_joint_indexes = [
             self.actuated_joint_names.index(j) for j in self.parameter_joint_names
         ]
-        self._lower = np.asarray(lower, dtype=np.float64)
-        self._upper = np.asarray(upper, dtype=np.float64)
-        self._velocity = np.asarray(velocity, dtype=np.float64)
         # assemble_q as one gather: position of each full-q entry inside
         # cat([q_opt, q_param]) — no scatter, so it stays torch.func-clean
         order = self.optimized_joint_indexes + self.parameter_joint_indexes
@@ -84,18 +178,32 @@ class RobotModel:
         )
         self._opt_idx = torch.as_tensor(self.optimized_joint_indexes, device=self.device)
         self._par_idx = torch.as_tensor(self.parameter_joint_indexes, device=self.device)
-        self._fk_all = kinematics.fk_fn(self.device, dtype)
-        self._fk_components = kinematics.fk_components_fn(self.device, dtype)
+        self._fk_all = kinematics.fk_fn(self.device, self.dtype)
+        self._fk_components = kinematics.fk_components_fn(self.device, self.dtype)
+
+    def get_urdf(self) -> Optional[Urdf]:
+        return self.urdf
 
     # -- joint bookkeeping ----------------------------------------------------
+
+    @property
+    def joint_names(self) -> List[str]:
+        return [j.name for j in self._require_urdf("joint_names").joints]
 
     @property
     def ndof(self) -> int:
         return len(self.actuated_joint_names)
 
+    def get_actuated_joint_index(self, joint_name: str) -> int:
+        return self.actuated_joint_names.index(joint_name)
+
     @property
     def num_opt_joints(self) -> int:
         return len(self.optimized_joint_names)
+
+    @property
+    def num_param_joints(self) -> int:
+        return len(self.parameter_joint_names)
 
     def extract_optimized_dimensions(self, values):
         """Select the optimized-joint entries along the LAST axis."""
@@ -274,4 +382,44 @@ class RobotModel:
 
     @property
     def link_names(self) -> List[str]:
-        return list(self.kinematics.frame_names)
+        """The URDF's links in document order (the frames' topological
+        order for a model built without a URDF)."""
+        if self.urdf is None:
+            return list(self.kinematics.frame_names)
+        return [link.name for link in self.urdf.links]
+
+    # -- dynamics and re-rooting ----------------------------------------------
+
+    def _require_urdf(self, what: str) -> Urdf:
+        if self.urdf is None:
+            raise ValueError(f"{what} needs the URDF: '{self.name}' was built from a kinematic tree")
+        return self.urdf
+
+    def rnea(self, q, qd, qdd, gravity=(0.0, 0.0, -9.81)):
+        """Inverse dynamics tau = M qdd + C qd + g (models/dynamics.py); the
+        function is built once per gravity vector."""
+        if getattr(self, "_idyn_cache", (None,))[0] != tuple(gravity):
+            self._idyn_cache = (tuple(gravity), make_inverse_dynamics(self, gravity))
+        return self._idyn_cache[1](q, qd, qdd)
+
+    def add_base_frame(self, base_link: str, xyz=None, rpy=None, joint_name=None) -> None:
+        """Re-root the model under a new fixed base frame, then rebuild
+        its FK."""
+        urdf = self._require_urdf("add_base_frame")
+        current_root = urdf.get_root()
+        if joint_name is None:
+            joint_name = f"{base_link}_and_{current_root}_joint"
+        urdf.add_link(UrdfLink(name=base_link))
+        urdf.add_joint(
+            UrdfJoint(
+                name=joint_name,
+                type="fixed",
+                parent=base_link,
+                child=current_root,
+                xyz=tuple(xyz) if xyz is not None else (0.0, 0.0, 0.0),
+                rpy=tuple(rpy) if rpy is not None else (0.0, 0.0, 0.0),
+            )
+        )
+        self.kinematics = KinematicModel.from_urdf(urdf, self.actuated_joint_names)
+        self._compile()
+        self._idyn_cache = (None, None)

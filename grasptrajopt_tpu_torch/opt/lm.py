@@ -1,6 +1,7 @@
 """Dense projected Levenberg-Marquardt with box constraints, batch-first.
 
-Port of grasptrajopt_tpu/opt/lm.py `make_box_lm_solver`:
+Port of grasptrajopt_tpu/opt/lm.py `make_box_lm_solver` and its one-problem
+wrapper `solve_box_lm`:
 
     min_x ||r(x, p)||^2 + v(x, p)   s.t.  lo <= x <= hi
 
@@ -22,7 +23,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import grad_and_value, jacfwd, vmap
+from torch.utils._pytree import tree_map
 
 from grasptrajopt_tpu_torch.ops.smallchol import (
     MAX_UNROLL_N,
@@ -130,3 +132,27 @@ def make_box_lm_solver(
         return x, c, {"lambda": lam}
 
     return solve
+
+
+def solve_box_lm(residual_fn, x0, lo, hi, params, value_fn=None, config: LMConfig = LMConfig()):
+    """One problem through `make_box_lm_solver` (a batch of one): x0 (n,),
+    params as residual_fn(x, params) takes them. value_fn(x (n,), params)
+    -> scalar, when given, is the term v. Returns (x (n,), cost (), aux)."""
+    batched = tree_map(lambda a: a[None], params)
+    value_term = None
+    if value_fn is not None:
+        value_grad = vmap(grad_and_value(value_fn))
+
+        def value(x, p, shared):
+            fn = value_fn
+            if x.dim() == 3:  # (B, A, n): each problem's trial candidates
+                fn = vmap(fn, in_dims=(0, None))
+            return vmap(fn)(x, p)
+
+        def value_and_grad(x, p, shared):
+            dv, v = value_grad(x, p)
+            return v, dv
+
+        value_term = (value, value_and_grad)
+    x, c, aux = make_box_lm_solver(residual_fn, config, value_term)(x0[None], lo, hi, batched)
+    return x[0], c[0], {k: v[0] for k, v in aux.items()}

@@ -26,7 +26,7 @@ from grasptrajopt_tpu_torch.fields.voxel_grid import OccupancyGrid2D, VoxelGrid
 from grasptrajopt_tpu_torch.models.kinematics import KinematicModel, _host_rt2tr
 from grasptrajopt_tpu_torch.models.mesh import geometry_mesh
 from grasptrajopt_tpu_torch.models.robot import RobotModel, urdf_joint_limits
-from grasptrajopt_tpu_torch.models.urdf import parse_urdf_string
+from grasptrajopt_tpu_torch.models.urdf import Urdf, parse_urdf_string
 from grasptrajopt_tpu_torch.ops import nn
 from grasptrajopt_tpu_torch.spatial import transform_points
 
@@ -49,8 +49,11 @@ class GTORobotModel(RobotModel):
         grid_resolution: float = 0.05,
         device="cuda",
         dtype=torch.float32,
+        time_derivs: Sequence[int] = (0,),
+        urdf: Optional[Urdf] = None,
     ):
-        super().__init__(kinematics, param_joints, lower, upper, velocity, device, dtype)
+        self._setup(kinematics, param_joints, lower, upper, velocity, device, dtype, urdf=urdf,
+                    time_derivs=time_derivs)
         self.field_margin = 0.4
         self.grid_resolution = float(grid_resolution)
         self.grid: Optional[VoxelGrid] = None
@@ -93,6 +96,7 @@ class GTORobotModel(RobotModel):
         model_dir: str = "",
         device="cuda",
         dtype=torch.float32,
+        time_derivs: Sequence[int] = (0,),
     ) -> "GTORobotModel":
         """Parse the URDF and sample each collision link's visual mesh
         exactly as the JAX package does."""
@@ -113,7 +117,8 @@ class GTORobotModel(RobotModel):
             pts[link.name], nrm[link.name] = mesh.sample_surface(points_per_link, seed=seed)
             vis[link.name] = _host_rt2tr(visual.rpy, visual.xyz)
         return cls(kin, param_joints, lower, upper, velocity, pts, nrm, vis,
-                   grid_resolution=grid_resolution, device=device, dtype=dtype)
+                   grid_resolution=grid_resolution, device=device, dtype=dtype,
+                   time_derivs=time_derivs, urdf=urdf)
 
     # -- surface point model --------------------------------------------------
 

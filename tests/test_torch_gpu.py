@@ -675,3 +675,109 @@ def test_base_solve_on_the_card_matches_cpu(cuda):
     np.testing.assert_allclose(y[:2], y64[:2], atol=1e-3, rtol=0)
     assert abs(y[2] - y64[2]) <= 1e-3 and -np.pi <= y[2] <= np.pi
     assert y[0] < -0.2 and err_pos[0] < 0.05 and err_rot[0] < 10.0 and col == 0.0
+
+
+# -- the builder stack on the card (small sizes), against the CPU ---------
+
+
+def _toy_nlps():
+    """(f, h, g, x0, config) of the AL-SQP toy problems."""
+    from grasptrajopt_tpu_torch.opt import ALSQPConfig
+
+    return {
+        "equality": (lambda x, p: torch.sum(x * x), lambda x, p: torch.stack([x[0] + x[1] - 1.0]), None,
+                     np.zeros(2), ALSQPConfig()),
+        "inequality": (lambda x, p: torch.sum((x - 2.0) ** 2), None, lambda x, p: 1.0 - x,
+                       np.zeros(1), ALSQPConfig()),
+        "sin_nlp": (lambda x, p: torch.sum(torch.sin(x)) + torch.sum(x * x), None,
+                    lambda x, p: torch.stack([2.0 - torch.sum(x * x)]), np.full(3, 0.5),
+                    ALSQPConfig(outer_iterations=12, inner_iterations=25)),
+    }
+
+
+@pytest.mark.parametrize("case", ["equality", "inequality", "sin_nlp"])
+def test_al_sqp_toy_nlps_on_the_card_match_cpu(cuda, case):
+    from grasptrajopt_tpu_torch.opt import make_al_sqp_solver
+
+    f, h, g, x0, cfg = _toy_nlps()[case]
+    solve = make_al_sqp_solver(f, h, g, cfg)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        n = x0.shape[0]
+        x, info = solve(torch.as_tensor(x0, dtype=torch.float64, device=dev),
+                        torch.full((n,), -np.inf, dtype=torch.float64, device=dev),
+                        torch.full((n,), np.inf, dtype=torch.float64, device=dev), None)
+        assert x.device.type == dev.type
+        out[dev.type] = (x.cpu().numpy(), float(info["constraint_violation"]))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-10)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-10
+    if case == "equality":
+        np.testing.assert_allclose(out["cuda"][0], [0.5, 0.5], atol=1e-6)
+
+
+def test_admm_batched_on_the_card_matches_cpu(cuda):
+    from grasptrajopt_tpu_torch.opt import solve_qp_admm
+
+    gen = torch.Generator().manual_seed(2)
+    B, n, m = 8, 40, 6
+    M = torch.randn((B, n, n), generator=gen, dtype=torch.float64) / n**0.5
+    P = M @ M.mT + torch.eye(n, dtype=torch.float64)
+    q = torch.randn((B, n), generator=gen, dtype=torch.float64)
+    A = torch.randn((B, m, n), generator=gen, dtype=torch.float64) / n**0.5
+    b = torch.randn((B, m), generator=gen, dtype=torch.float64)
+    x_cpu = solve_qp_admm(P, q, A, b, b)[0]
+    x_gpu = solve_qp_admm(*(t.to(cuda) for t in (P, q, A, b, b)))[0]
+    np.testing.assert_allclose(x_gpu.cpu().numpy(), x_cpu.numpy(), atol=1e-9)
+    kkt = torch.cat([torch.cat([P, A.mT], dim=2), torch.cat([A, torch.zeros((B, m, m), dtype=torch.float64)], dim=2)],
+                    dim=1)
+    want = torch.linalg.solve(kkt.to(cuda), torch.cat([-q, b], dim=1).to(cuda))[:, :n]
+    assert float((x_gpu - want).abs().max()) <= 1e-4
+
+
+def test_rnea_on_the_card_matches_cpu(cuda):
+    from grasptrajopt_tpu_torch.models import RobotModel
+    from grasptrajopt_tpu_torch.models.dynamics import coriolis_vector, gravity_vector, mass_matrix
+    from grasptrajopt_tpu_torch.testing import DOUBLE_PENDULUM_URDF
+
+    rng = np.random.default_rng(3)
+    robots = {d.type: RobotModel(urdf_string=DOUBLE_PENDULUM_URDF, dtype=torch.float64, device=d)
+              for d in (cuda, torch.device("cpu"))}
+    for _ in range(3):
+        q, qd, qdd = (rng.uniform(-1.5, 1.5, size=2) for _ in range(3))
+        out = {}
+        for k, r in robots.items():
+            t = [torch.as_tensor(v, dtype=torch.float64, device=r.device) for v in (q, qd, qdd)]
+            tau = r.rnea(*t)
+            split = mass_matrix(r, t[0]) @ t[2] + coriolis_vector(r, t[0], t[1]) + gravity_vector(r, t[0])
+            assert float((tau - split).abs().max()) <= 1e-10
+            out[k] = tau.cpu().numpy()
+        np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-10)
+
+
+def test_sdf_program_matches_k4_on_the_card(cuda):
+    from grasptrajopt_tpu_torch.fields import sdf_value_jac_hess
+    from grasptrajopt_tpu_torch.ops import interp
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot, make_synthetic_scene_field
+
+    robot = make_synthetic_gto_robot(device=cuda, points_per_link=1)
+    g = robot.grid
+    field = torch.as_tensor(make_synthetic_scene_field(robot), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    lo = torch.tensor([0.25, -0.35, 0.30], device=cuda)
+    pts = lo + torch.rand((4096, 3), generator=gen, device=cuda) * torch.tensor([0.7, 0.7, 0.2], device=cuda)
+    vals, jac, hess = sdf_value_jac_hess(g, field, pts)
+    before = interp.field_lookup_launches
+    k4 = interp.field_lookup_packed_soa_grad(g.pack(field), pts[:, 0], pts[:, 1], pts[:, 2], g.origin, g.shape,
+                                             g.resolution)
+    assert interp.field_lookup_launches == before + 1
+    for got, want in zip(k4, (vals, jac[:, 0], jac[:, 1], jac[:, 2])):
+        assert float((got - want).abs().max()) <= 1e-5 * (1 + float(want.abs().max()))
+    assert float(jac.abs().max()) > 0.1
+    assert bool((torch.diagonal(hess, dim1=1, dim2=2) == 0).all())
+    # against the CPU's float64 program at the same points: float32
+    # rounding, relative to each output's largest entry (the mixed second
+    # derivatives reach ~(field step) / resolution^2 ~ 20)
+    cpu = sdf_value_jac_hess(g, field.double().cpu(), pts.double().cpu())
+    for got, want in zip((vals, jac, hess), cpu):
+        err = float((got.double().cpu() - want).abs().max())
+        assert err <= 1e-5 * (1 + float(want.abs().max())), err
