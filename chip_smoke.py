@@ -13,7 +13,8 @@ result line:
   2. build: compiles the kernels (csrc/min_d2.cu: K1; csrc/nearest.cu: K2
      and K3; csrc/field_lookup.cu: K4) with nvcc for sm_90a from the
      sources in this checkout, one nvcc per source, all started together,
-     and prints nvcc's register and shared-memory report;
+     and prints nvcc's register and shared-memory report; beside them the
+     host geometry library (csrc/geomcore.cpp) with g++;
   3. kernel vs plain: K1 against its plain-torch version on the same CUDA
      tensors, at the perception-to-plan path's widths (B = 16 clouds,
      M = 95,760 workspace grid points, N = 12,288 obstacle and 2,048 target
@@ -116,7 +117,11 @@ result line:
      back (`queued_ms`). A report of the IK warm start (single seed and
      multistart reach on the bench's goals). Then each flavour, warmed up,
      timed (latency: best of 3 synchronized solves; sustained plans/s: 5
-     back-to-back solves, one synchronize) and counted once: K4 exactly 3
+     solves through parallel.stream_map with 4 in flight, as bench.py
+     measures it) and counted once; the default flavour's sustained rate
+     also at inflight 1 and 4 alternated over 3 rounds (1, 4 | 4, 1 |
+     1, 4) of 6 solves each, with each depth's spread and the host
+     syncs of one solve: K4 exactly 3
      launches a solve in the
      default flavour (T = 50, single pass, coarse 2+1, final_trust), 7 in
      the two-pass flavour (1 + 3 x 2), 3 in the long-horizon flavour
@@ -196,10 +201,37 @@ result line:
      zero pure second derivatives; 16 equality-constrained QPs of 256
      variables through batched ADMM against their KKT solves (1e-4); the
      double pendulum's rnea against M qdd + C + g (1e-10);
- 11. result: the nvidia-smi line, one JSON line of kernel records (with
+ 11. serving and execution (grasptrajopt_tpu_torch.throughput_serving,
+     parallel, planning/retiming, envs, utils/profiling, native): the
+     serving demo at its defaults (8 requests of 16 problems x 4 goals,
+     each problem with its own field, packed per solve into one stacked
+     table; synth7 at 32 points per link; GTOPlanner(iterations=10), the
+     two-pass LM), a warm-up, the synchronous loop and the same requests
+     through PlanStream at inflight 4, whose submit must retire 4 of the
+     8 results at the depth bound: K4 exactly 1 + 2 x 10 = 21 launches a
+     solve and K1-K3 none, every request's pipelined (Q, cost)
+     bit-identical to the synchronous ones, every plan finite, within the
+     limits and pinned, K4 against plain at the last request's final body
+     points on its stacked table at strides 1 and 2 (LOOKUP_TOL);
+     synchronous and pipelined plans/s, their ratio, each synchronous
+     solve's and each submit's host time; the host syncs of one served
+     solve (torch.cuda.set_sync_debug_mode) under torch.profiler's device
+     activity: its device time, device ops (K4 exactly 21) and busy
+     share; one served solve of a one-iteration server traced by
+     utils.profiling.trace into logs/serving/trace (the file must name
+     K4's kernel); 4 served plans retimed
+     (convert_plan_to_trajectory: endpoints within 1e-3 rad, |qd| within
+     1.05 x synth7's velocity limits) and the first executed on the
+     port's fake PyBullet through FixedBaseRobot with synth7's URDF, its
+     end-effector within 1e-5 m of the card's FK of the plan's last step;
+     the native geometry library built (g++) and a 160x160 observation
+     rendered bit-identically through it and the numpy rasterizer; the
+     phase's PhaseTimer(sync=True) report;
+ 12. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
      call's time; K2 / K3's times queued, K3 also at the occupancy
-     builds), and the last line
+     builds; K4's launches are the bench solve's, a served solve's are
+     printed before), and the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -289,6 +321,7 @@ def device_kernels(fn) -> list:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -303,10 +336,15 @@ def phase_build():
 
     from grasptrajopt_tpu_torch.ops import cuda_build
 
+    from grasptrajopt_tpu_torch import native
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        geomcore = pool.submit(native.build, True)  # the host library (g++), beside the kernels
         results = list(pool.map(lambda n: cuda_build.build(n, force=True), KERNEL_SOURCES))
-    print(f"[build] {len(results)} sources in {time.perf_counter() - t0:.1f} s")
+        if not geomcore.result():
+            raise AssertionError("build: g++ failed on csrc/geomcore.cpp")
+    print(f"[build] {len(results)} sources and csrc/geomcore.cpp (g++) in {time.perf_counter() - t0:.1f} s")
     for res in results:
         print(f"[build] {' '.join(res.command)}")
         print("[build] nvcc -Xptxas -v report:")
@@ -969,12 +1007,12 @@ def planner_points(robot, Q_full, base_position=None, stride: int = 1):
     return pts[..., 0], pts[..., 1], pts[..., 2]
 
 
-def check_plan_fields(name, planner, table, Q_full, base_position=None, field_base=None):
+def check_plan_fields(name, planner, table, Q_full, base_position=None, field_base=None, strides=None):
     """K4 against plain at the body points of plans Q_full (B, T, ndof), in
     the layout and with the row bases the planner gives it (the phase slab,
     plus each problem's field_base on a stacked table), at the fine stride
-    and, where the planner has a coarse phase, the coarse one; returns the
-    max |err|."""
+    and, where the planner has a coarse phase, the coarse one (or at the
+    given `strides`); returns the max |err|."""
     import torch
 
     from grasptrajopt_tpu_torch.ops import interp
@@ -985,7 +1023,7 @@ def check_plan_fields(name, planner, table, Q_full, base_position=None, field_ba
     if field_base is not None:
         row = row + field_base[:, None, None]
     err = 0.0
-    for stride in sorted({1, planner.coarse_stride if planner.coarse_iterations else 1}):
+    for stride in strides or sorted({1, planner.coarse_stride if planner.coarse_iterations else 1}):
         x, y, z = planner_points(planner.robot, Q_full, base_position, stride)
         args = (table, x, y, z, g.origin, g.shape, g.resolution, row)
         got = interp.field_lookup_packed_soa_grad(*args)
@@ -1219,6 +1257,35 @@ def phase_warm_start_report(bench):
           "within 5 degrees")
 
 
+DEPTH_ROUNDS = 3  # rounds of the bench solve's stream at inflight 1 and 4, the order alternating
+DEPTH_SOLVES = 6  # solves a depth a round
+
+
+def depth_rates(pb, bench):
+    """The bench solve's sustained rate through stream_map at inflight 1
+    and pb.INFLIGHT, alternated over DEPTH_ROUNDS rounds (1, 4 | 4, 1 |
+    ...) of DEPTH_SOLVES solves, so a drift of the host's speed falls on
+    both depths; prints each depth's rates, mean and spread, each round's
+    ratio, and the host syncs of one solve (each drains the stream, so
+    the host cannot run ahead of the card)."""
+    syncs = host_syncs(bench.step)
+    depths = (1, pb.INFLIGHT)
+    rates = {k: [] for k in depths}
+    for r in range(DEPTH_ROUNDS):
+        for k in depths[:: 1 if r % 2 == 0 else -1]:
+            rates[k].append(pb.stream_solves(bench, DEPTH_SOLVES, k)[0])
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    ratios = [b / a for a, b in zip(rates[1], rates[pb.INFLIGHT])]
+    print(f"[bench] default: the stream's depth, {DEPTH_ROUNDS} rounds of {DEPTH_SOLVES} solves a depth, "
+          f"alternated: " + "; ".join(
+              f"inflight {k} {[round(x, 3) for x in v]} plans/s (mean {mean[k]:.3f}, spread "
+              f"{min(v):.3f}-{max(v):.3f}, {100 * (max(v) - min(v)) / mean[k]:.1f}% of the mean)"
+              for k, v in rates.items())
+          + f"; inflight {pb.INFLIGHT} / 1 by round {[round(x, 4) for x in ratios]}, of the means "
+            f"{mean[pb.INFLIGHT] / mean[1]:.4f}; host syncs in one solve (set_sync_debug_mode) "
+            f"{sum(syncs.values())}: {syncs}")
+
+
 def phase_bench(dev):
     """The port's bench solve (grasptrajopt_tpu_torch.bench) at full width
     in its four flavours, and K4 against plain. Returns (the K4 records,
@@ -1249,6 +1316,8 @@ def phase_bench(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         timed = pb.time_solves(bench, reps=3, pipe_reps=5)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        if flavour == "default":
+            depth_rates(pb, bench)
         nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
         Q, cost, _ = bench.step()
         torch.cuda.synchronize(dev)
@@ -1265,7 +1334,8 @@ def phase_bench(dev):
               f"final fields vs plain max |err| {err:.3e}; cost median {float(cost.median()):.4f}")
         print(f"[bench] {flavour}: latency {timed['latency_s'] * 1e3:.3f} ms (best of "
               f"{[round(t * 1e3, 3) for t in timed['latency_runs_s']]} ms), sustained "
-              f"{timed['plans_per_s']:.3f} plans/s over 5 back-to-back solves; peak device memory {peak:.1f} MiB")
+              f"{timed['plans_per_s']:.3f} plans/s over 5 solves through stream_map at inflight {timed['inflight']}; "
+              f"peak device memory {peak:.1f} MiB")
         print(f"[bench] {flavour}: gates {json.dumps(gates)} (reported, not gated)")
         if flavour == "long_horizon":
             phase_cr_vs_thomas(dev, cfg.batch, cfg.T - 2, robot.num_opt_joints)
@@ -1580,6 +1650,7 @@ def profile_trial(fn) -> dict:
     wall."""
     import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2181,6 +2252,260 @@ def phase_builder(dev, points_per_link: int = 100, T: int = 50, config=None, sdf
           f"{dyn_err:.3e} (limit {DYN_TOL}); phase {time.perf_counter() - t0:.1f} s")
 
 
+# the serving phase's limits: retimed plans against the served plans and
+# synth7's velocity limits, the fake's end-effector against the card's FK
+RETIME_END_TOL = 1e-3  # rad, the retimed trajectory's first and last samples
+RETIME_VEL_FACTOR = 1.05  # |qd| within this factor of the velocity limits
+EXECUTE_TOL = 1e-5  # m, the fake's end-effector position against the FK on the card
+
+
+def k4_per_solve(planner) -> int:
+    """K4 launches of one solve of `planner`'s TrajectoryConfig: the
+    two-pass LM looks up once for the start cost and twice an iteration
+    (the linearisation and the candidate pass); the single-pass LM once an
+    iteration (coarse ones included), plus the post-scan pass unless
+    final_trust skips it."""
+    if not planner.single_pass:
+        return 1 + 2 * planner.iterations
+    return planner.iterations + (0 if planner.final_trust else 1)
+
+
+def host_syncs(fn) -> dict:
+    """{file:line: count} of the synchronizing CUDA operations one call of
+    `fn` makes (torch.cuda.set_sync_debug_mode("warn")), each attributed
+    to the innermost frame of this package on the stack (the line that
+    reached the sync, also through torch's own Python)."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    counts = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f"{os.sep}grasptrajopt_tpu_torch{os.sep}" in f.filename]
+        where = (ours[-1].filename, ours[-1].lineno) if ours else (filename, lineno)
+        counts[f"{os.path.relpath(where[0])}:{where[1]}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(counts)
+
+
+def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, iterations: int = 10, goals: int = 4,
+                  out_dir=None):
+    """Serving and execution: the serving demo (throughput_serving) at its
+    defaults, retiming of served plans, one plan executed on the port's
+    fake PyBullet, where a served solve's time goes and a trace of one
+    served solve, and the native geometry library. Returns the K4 launches
+    of one served solve."""
+    import collections
+    import os
+    import shutil
+    import sys as _sys
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from grasptrajopt_tpu_torch import native
+    from grasptrajopt_tpu_torch import throughput_serving as serving
+    from grasptrajopt_tpu_torch.envs import fake_pybullet
+    from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
+    from grasptrajopt_tpu_torch.planning.retiming import convert_plan_to_trajectory
+    from grasptrajopt_tpu_torch.testing import SYNTH_ARM_URDF, SYNTH_LINK_EE
+    from grasptrajopt_tpu_torch.utils.profiling import PhaseTimer, trace
+
+    t_phase = time.perf_counter()
+    out_dir = out_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs", "serving")
+    os.makedirs(out_dir, exist_ok=True)
+    timer = PhaseTimer(sync=True, device=dev)
+
+    # the demo at its defaults: B problems a request, each with its own field
+    with timer.phase("setup"):
+        server = serving.Server(iterations=iterations, goals=goals, device=dev)
+        requests = [server.request(seed, batch) for seed in range(batches)]
+    planner, robot = server.planner, server.robot
+    per_solve = k4_per_solve(planner)
+    reset_launch_counts()
+    with timer.phase("serve"):
+        out = serving.serve(server, requests, inflight)
+    counts = launch_counts()
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": (1 + 2 * batches) * per_solve}
+    if counts != want:
+        raise AssertionError(f"serving: launches {counts} over {1 + 2 * batches} solves, expected {want}")
+    if out["retired_by_submit"] != max(0, batches - inflight):
+        raise AssertionError(f"serving: submit retired {out['retired_by_submit']} of {batches} requests at depth "
+                             f"{inflight}, expected {max(0, batches - inflight)}")
+    print(f"[serving] demo: {batches} requests of {batch} problems x {goals} goals, synth7 at 32 points per link "
+          f"({robot.num_surface_points} body points), GTOPlanner(iterations={iterations}) (single_pass "
+          f"{planner.single_pass}, T = {planner.T}), standoff along z, a stacked table of {batch} fields a "
+          f"request; launches over the warm-up, {batches} synchronous and {batches} pipelined solves {counts}: "
+          f"K4 {per_solve} a solve (1 + 2 x {iterations}), K1-K3 none")
+
+    with timer.phase("check"):
+        qc = torch.as_tensor(server.qc, device=dev)
+        for i, ((Qs, cs), (Qp, cp)) in enumerate(zip(out["sync"], out["pipelined"])):
+            if not (torch.equal(Qs, Qp) and torch.equal(cs, cp)):
+                raise AssertionError(f"serving: request {i}'s pipelined plans differ from the synchronous ones by "
+                                     f"{float((Qs - Qp).abs().max()):.3e} rad, costs by {float((cs - cp).abs().max()):.3e}")
+            if tuple(Qs.shape) != (batch, planner.T, robot.num_opt_joints) or not bool(torch.isfinite(cs).all()):
+                raise AssertionError(f"serving: request {i}: Q {tuple(Qs.shape)}, cost finite {bool(torch.isfinite(cs).all())}")
+            check_plans(f"served request {i}", robot.assemble_q(Qs, requests[i][2]["q_param"][:, None, :]), qc, robot)
+        last = requests[-1][2]
+        Q_last = robot.assemble_q(out["sync"][-1][0], last["q_param"][:, None, :])
+        tables, base = planner.pack_stacked_fields(last["sdf_cost_all"], last["sdf_cost_obstacle"])
+        k4_err = check_plan_fields("served plans' final fields", planner, tables, Q_last, field_base=base,
+                                   strides=(1, planner.coarse_stride))
+        del tables
+    print(f"[serving] every request's pipelined (Q, cost) bit-identical to the synchronous loop's; every plan "
+          f"finite, within the joint limits and pinned; K4 against plain at the last request's final body points "
+          f"on its stacked table ({batch} slabs, row bases {base.tolist()[:3]}...), strides 1 and "
+          f"{planner.coarse_stride}: max |err| {k4_err:.3e} (tolerance {LOOKUP_TOL:g} x (1 + |plain|))")
+    solve_ms = [round(1e3 * t, 1) for t in out["sync_solve_s"]]
+    submit_ms = [round(1e3 * t, 1) for t in out["submit_s"]]
+    print(f"[serving] synchronous {out['sync_plans_per_s']:.3f} plans/s ({out['sync_s']:.3f} s), pipelined "
+          f"(inflight {inflight}) {out['pipelined_plans_per_s']:.3f} plans/s ({out['pipelined_s']:.3f} s), ratio "
+          f"{out['ratio']:.4f}; host time a submit {out['submit_ms']:.3f} ms; submit retired "
+          f"{out['retired_by_submit']} of {batches} results at the depth bound, drain the rest; the synchronous "
+          f"solves {solve_ms} ms (spread {100 * (max(solve_ms) - min(solve_ms)) / (sum(solve_ms) / batches):.1f}% "
+          f"of the mean), the submits {submit_ms} ms")
+
+    # where a served solve waits on the host and where its device time goes
+    # (device activity only: with the host's ~700k op events the profile
+    # took ~50 s); then a trace() of a served solve of a one-iteration
+    # server, the same path at 1 + 2 x 1 K4 launches
+    with timer.phase("profile"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            syncs = host_syncs(lambda: server.solve(*requests[0]))
+        device_ns = collections.Counter()
+        device_n = collections.Counter()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                device_ns[e.name()] += e.duration_ns()
+                device_n[e.name()] += 1
+        del prof
+        device_ms = sum(device_ns.values()) / 1e6
+        k4_names = [k for k in device_ns if "field_lookup_kernel" in k]
+        wall_ms = 1e3 * out["sync_s"] / batches
+        top = [[k[:60], device_n[k], round(v / 1e6, 3)] for k, v in device_ns.most_common(6)]
+        if sum(device_n[k] for k in k4_names) != per_solve:
+            raise AssertionError(f"serving: the profiled solve ran K4 {sum(device_n[k] for k in k4_names)} times, "
+                                 f"expected {per_solve}")
+        small = serving.Server(iterations=1, goals=goals, device=dev)
+        small_request = small.request(0, batch)
+        small.solve(*small_request)
+        logdir = os.path.join(out_dir, "trace")
+        shutil.rmtree(logdir, ignore_errors=True)
+        t_trace = time.perf_counter()
+        with trace(logdir):
+            small.solve(*small_request)
+            torch.cuda.synchronize(dev)
+        files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"serving: trace() wrote {os.listdir(logdir)}")
+        trace_path = os.path.join(logdir, files[0])
+        with open(trace_path) as f:
+            names_k4 = any("field_lookup_kernel" in line for line in f)
+        if not names_k4:
+            raise AssertionError(f"serving: the trace {trace_path} names no field_lookup_kernel (K4)")
+        t_trace = time.perf_counter() - t_trace
+        del small, small_request
+    print(f"[serving] host syncs in one served solve (set_sync_debug_mode): "
+          f"{syncs if syncs else 'none'}")
+    print(f"[serving] one served solve: wall {wall_ms:.1f} ms (the synchronous loop's mean), device {device_ms:.1f} ms "
+          f"in {sum(device_n.values())} device ops (torch.profiler, device activity), busy "
+          f"{100 * device_ms / wall_ms:.1f}%; K4 {sum(device_n[k] for k in k4_names)} launches, "
+          f"{sum(device_ns[k] for k in k4_names) / 1e6:.3f} ms; top device ops {top}")
+    print(f"[serving] utils.profiling.trace of a served solve at iterations=1: {trace_path} "
+          f"({os.path.getsize(trace_path) / 2**20:.1f} MiB, names field_lookup_kernel; traced and read in "
+          f"{t_trace:.1f} s)")
+
+    # retiming and execution on the port's fake PyBullet
+    with timer.phase("execute"):
+        vmax = robot.velocity_optimized_joint_limits
+        Q_served = out["sync"][0][0]
+        retimed = []
+        for b in range(min(4, batch)):
+            plan = Q_served[b].T  # (7, T) on the card: retiming brings it to the host
+            qs, qds, qdds, ts = convert_plan_to_trajectory(robot, plan)
+            host = plan.double().cpu().numpy()
+            ends = max(float(np.abs(qs[0] - host[:, 0]).max()), float(np.abs(qs[-1] - host[:, -1]).max()))
+            vel = float((np.abs(qds) / vmax).max())
+            if not (np.isfinite(qs).all() and ends <= RETIME_END_TOL and vel <= RETIME_VEL_FACTOR):
+                raise AssertionError(f"retimed plan {b}: endpoints off by {ends:.3e} rad, |qd| up to {vel:.3f} x "
+                                     "the velocity limits")
+            retimed.append((qs, ts, ends, vel))
+        urdf = os.path.join(out_dir, "synth7.urdf")
+        with open(urdf, "w") as f:
+            f.write(SYNTH_ARM_URDF)
+        previous = _sys.modules.get("pybullet")
+        fake_pybullet.install(force=True)
+        try:
+            from grasptrajopt_tpu_torch.envs.pybullet_api import FixedBaseRobot
+
+            fake_pybullet.resetSimulation()
+            arm = FixedBaseRobot(urdf)
+            fingers = server.qc[7:].astype(np.float64)
+            qs = retimed[0][0]
+            arm.reset(np.concatenate([qs[0], fingers]))
+            arm.execute_plan(np.concatenate([qs, np.tile(fingers, (len(qs), 1))], axis=1).T)
+            names = [fake_pybullet.getJointInfo(arm._id, j)[12].decode() for j in range(arm.num_joints)]
+            ee_pos = np.asarray(fake_pybullet.getLinkState(arm._id, names.index(SYNTH_LINK_EE))[0])
+            q_end = robot.assemble_q(Q_served[0, -1], requests[0][2]["q_param"][0])
+            fk_pos = robot.get_global_link_transform(SYNTH_LINK_EE, q_end)[:3, 3].double().cpu().numpy()
+            fake_pybullet.disconnect()
+        finally:
+            if previous is None:
+                _sys.modules.pop("pybullet", None)
+            else:
+                _sys.modules["pybullet"] = previous
+        ee_err = float(np.linalg.norm(ee_pos - fk_pos))
+        if not ee_err <= EXECUTE_TOL:
+            raise AssertionError(f"executed plan: the fake's end-effector {ee_pos} is {ee_err:.3e} m from the FK "
+                                 f"of the plan's last step {fk_pos}")
+    print(f"[serving] retimed {len(retimed)} served plans (convert_plan_to_trajectory, synth7's velocity limits, 0.5 rad/s^2): "
+          f"durations {[round(float(r[1][-1]), 3) for r in retimed]} s, endpoints within "
+          f"{max(r[2] for r in retimed):.3e} rad (limit {RETIME_END_TOL}), |qd| up to "
+          f"{max(r[3] for r in retimed):.4f} x the limits (limit {RETIME_VEL_FACTOR}); the first executed on the "
+          f"port's fake PyBullet through FixedBaseRobot (synth7's URDF, {len(retimed[0][0])} waypoints): its "
+          f"end-effector {np.round(ee_pos, 6).tolist()} is {ee_err:.3e} m from the card's FK of the plan's last "
+          f"step (limit {EXECUTE_TOL} m)")
+
+    # the native geometry library: built here, and the rasterizer bit for bit against numpy
+    with timer.phase("native"):
+        if not native.is_available():
+            raise AssertionError("native: the geomcore library did not build (g++)")
+        env = SyntheticSceneEnv(robot_name="panda", scene_type="tabletop", n_objects=5, width=160, height=160)
+        env.setup_scene(10)
+        env.reset_scene()
+        got = env.get_observation()
+        with mock.patch.object(native, "rasterize_native", lambda *a, **k: False):
+            want = env.get_observation()
+        for a, b in zip(got, want):
+            if not np.array_equal(a, b):
+                raise AssertionError("native: the C++ rasterizer differs from the numpy one")
+    print(f"[serving] native: libgeomcore built from csrc/geomcore.cpp; a 160x160 tabletop observation "
+          f"({int((got[1] >= 0).sum())} object pixels) bit-identical through the C++ and the numpy rasterizer")
+    print("[serving] PhaseTimer(sync=True):\n" + "\n".join(f"[serving]   {line}" for line in timer.report().splitlines()))
+    print(f"[serving] phase {time.perf_counter() - t_phase:.1f} s")
+    return per_solve
+
+
 def main() -> int:
     import torch
 
@@ -2213,9 +2538,10 @@ def main() -> int:
     phase_closed_loop(dev)
     occ = phase_mobile(dev)
     phase_builder(dev)
+    serving_k4 = phase_serving(dev)
     print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
           f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
-          f"(max |err| there {ik_err:.3e})")
+          f"(max |err| there {ik_err:.3e}), a served solve {serving_k4}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):

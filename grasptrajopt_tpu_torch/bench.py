@@ -21,11 +21,11 @@ Run on a machine with a CUDA device (there is no CPU measurement path):
     python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon|bf16] [--profile]
 
 It prints one JSON line: latency (best of `reps` synchronized solves),
-sustained plans/s (`pipe_reps` solves issued back to back, one
-synchronize at the end), the table's `itemsize` and the corner-row bytes
-K4 reads a solve (`gather_bytes`, as the JAX bench counts them), the
-bench's quality gates (`quality_gates`) and, with --profile, where one
-solve's time goes (`profile_solve`).
+sustained plans/s (`pipe_reps` solves through `parallel.stream_map` with
+`INFLIGHT` = 4 solves outstanding, as bench.py measures it), the table's
+`itemsize` and the corner-row bytes K4 reads a solve (`gather_bytes`, as
+the JAX bench counts them), the bench's quality gates (`quality_gates`)
+and, with --profile, where one solve's time goes (`profile_solve`).
 """
 
 from __future__ import annotations
@@ -35,10 +35,12 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
+from grasptrajopt_tpu_torch.parallel import stream_map
 from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
 from grasptrajopt_tpu_torch.planning.utils import interpolate_waypoints
@@ -138,7 +140,10 @@ class SolveBenchConfig:
     goal_coherence: float = 0.0
     field_dtype: str = "float32"  # the corner table's dtype: "float32" or "bfloat16"
     reps: int = 2  # synchronized solves; the best is the latency
-    pipe_reps: int = 5  # back-to-back solves of the sustained rate
+    pipe_reps: Optional[int] = None  # solves of the sustained rate (None: max(reps, 5), as bench.py)
+
+
+INFLIGHT = 4  # solves outstanding while the sustained rate is measured (bench.py's depth)
 
 
 FLAVOURS = {
@@ -282,11 +287,24 @@ class SolveBench:
         )
 
 
-def time_solves(bench: SolveBench, reps: int, pipe_reps: int):
+def stream_solves(bench: SolveBench, solves: int, inflight: int = INFLIGHT):
+    """Sustained plans/s of `solves` solves through `stream_map` with
+    `inflight` outstanding, as bench.py measures it; returns it with the
+    last solve's (Q, cost)."""
+    t0 = time.perf_counter()
+    for Q, cost, _ in stream_map(lambda: bench.step(), [()] * solves, inflight=inflight):
+        pass
+    return solves * bench.cfg.batch / (time.perf_counter() - t0), Q, cost
+
+
+def time_solves(bench: SolveBench, reps: int, pipe_reps: Optional[int] = None, inflight: int = INFLIGHT):
     """Latency (s, best of `reps` synchronized solves) and sustained
-    plans/s (`pipe_reps` solves back to back, one synchronize), after one
-    warm-up solve; returns them with the last solve's (Q, cost)."""
+    plans/s (`stream_solves` over `pipe_reps` solves, default
+    max(reps, 5), as bench.py), after one warm-up solve; returns them with
+    the last solve's (Q, cost)."""
     dev = bench.robot.device
+    if pipe_reps is None:
+        pipe_reps = max(reps, 5)
     Q, cost, _ = bench.step()
     torch.cuda.synchronize(dev)
     times = []
@@ -295,15 +313,13 @@ def time_solves(bench: SolveBench, reps: int, pipe_reps: int):
         Q, cost, _ = bench.step()
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for _ in range(pipe_reps):
-        Q, cost, _ = bench.step()
-    torch.cuda.synchronize(dev)
-    pipe_s = time.perf_counter() - t0
+    plans_per_s, Q, cost = stream_solves(bench, pipe_reps, inflight)
     return {
         "latency_s": min(times),
         "latency_runs_s": times,
-        "plans_per_s": pipe_reps * bench.cfg.batch / pipe_s,
+        "plans_per_s": plans_per_s,
+        "pipe_reps": pipe_reps,
+        "inflight": inflight,
         "Q": Q,
         "cost": cost,
     }
@@ -362,6 +378,8 @@ def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool
         "latency_s": timed["latency_s"],
         "latency_runs_s": timed["latency_runs_s"],
         "plans_per_s": timed["plans_per_s"],
+        "pipe_reps": timed["pipe_reps"],
+        "inflight": timed["inflight"],
         "itemsize": bench.table.element_size(),
         "gather_bytes": bench.gather_bytes(),
         "quality": bench.gates(timed["Q"]),

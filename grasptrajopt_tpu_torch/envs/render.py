@@ -11,9 +11,10 @@ per-pixel triangle index (for surface normals in the virtual-scan path).
 
 Camera model matches fields/depth_point_cloud.py's backprojection: pinhole
 K, camera looks down +z with x right / y down, `cam_pose` is
-world-from-camera; depth values are camera-frame z. This copy keeps only
-the vectorized numpy rasterizer (the JAX package's C++ one is reached
-through a module that imports JAX).
+world-from-camera; depth values are camera-frame z. The hot loop is the
+C++ rasterizer of csrc/geomcore.cpp (`grasptrajopt_tpu_torch.native`); a
+vectorized numpy fallback renders the same pixels where the library
+cannot be built.
 """
 
 from __future__ import annotations
@@ -107,6 +108,8 @@ def render_depth(
     z-buffer the whole image away). Note per-pixel face indices keep the
     ORIGINAL face numbering.
     """
+    from grasptrajopt_tpu_torch.native import rasterize_native
+
     cam_pose = np.asarray(cam_pose, dtype=np.float64)
     K = np.asarray(K, dtype=np.float64)
     R_wc = cam_pose[:3, :3]
@@ -134,10 +137,15 @@ def render_depth(
         depth_before = (
             depth.copy() if (kept is not None and face_idx is not None) else None
         )
-        _rasterize_numpy(
+        done = rasterize_native(
             verts_cam, faces, fx, fy, cx, cy, width, height,
             obj_id, depth, ids, face_idx,
         )
+        if not done:
+            _rasterize_numpy(
+                verts_cam, faces, fx, fy, cx, cy, width, height,
+                obj_id, depth, ids, face_idx,
+            )
         if kept is not None and face_idx is not None:
             # restore ORIGINAL face numbering for the pixels THIS pass wrote
             mine = (depth < depth_before) & (face_idx >= 0)

@@ -781,3 +781,35 @@ def test_sdf_program_matches_k4_on_the_card(cuda):
     for got, want in zip((vals, jac, hess), cpu):
         err = float((got.double().cpu() - want).abs().max())
         assert err <= 1e-5 * (1 + float(want.abs().max())), err
+
+
+def test_plan_stream_on_the_card_is_the_synchronous_loop(cuda):
+    """The serving demo's stream at depths 1, 2 and 4 against its
+    synchronous loop on the card: plans and costs bit for bit, and K4
+    launched 1 + 2 x iterations times a solve (the two-pass LM)."""
+    from grasptrajopt_tpu_torch import throughput_serving as serving
+    from grasptrajopt_tpu_torch.ops import interp
+
+    server = serving.Server(iterations=3, goals=2, device=cuda, points_per_link=8)
+    requests = [server.request(seed, 4) for seed in range(4)]
+    before = interp.field_lookup_launches
+    server.solve(*requests[0])
+    torch.cuda.synchronize()
+    assert interp.field_lookup_launches == before + 1 + 2 * 3
+    for depth in (1, 2, 4):
+        out = serving.serve(server, requests, depth)
+        for (Qs, cs), (Qp, cp) in zip(out["sync"], out["pipelined"]):
+            assert torch.equal(Qs, Qp) and torch.equal(cs, cp)
+            assert bool(torch.isfinite(Qs).all())
+
+
+def test_phase_timer_sync_waits_for_the_card(cuda):
+    from grasptrajopt_tpu_torch.utils.profiling import PhaseTimer, device_memory_stats
+
+    waits, lazy = PhaseTimer(sync=True, device=cuda), PhaseTimer(sync=False)
+    for timer in (lazy, waits):
+        with timer.phase("sleep"):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+    torch.cuda.synchronize()
+    assert waits.totals["sleep"] > 0.05 > lazy.totals["sleep"]
+    assert "allocated_bytes.all.current" in device_memory_stats(cuda)

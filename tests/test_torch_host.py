@@ -89,7 +89,7 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU (the CPU tests pass device="cpu")."""
     import inspect
 
-    from grasptrajopt_tpu_torch import convert, synthetic_eval, synthetic_eval_mobile
+    from grasptrajopt_tpu_torch import convert, synthetic_eval, synthetic_eval_mobile, throughput_serving
     from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
     from grasptrajopt_tpu_torch.models.robot import RobotModel
     from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
@@ -99,10 +99,12 @@ def test_entry_points_default_to_the_card():
         RobotModel.__init__, GTORobotModel.__init__, GTORobotModel.from_urdf_string, port_synth,
         convert.robot_from_numpy, convert.scene_sets_from_numpy, convert.params_from_numpy,
         DepthPointCloud.__init__, make_synthetic_gripper, synthetic_eval.build_models,
+        throughput_serving.Server.__init__,
     ):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert synthetic_eval.make_args([]).device == "cuda"
     assert synthetic_eval_mobile.make_args([]).device == "cuda"
+    assert throughput_serving.make_args([]).device == "cuda"
 
 
 def test_build_models_picks_the_dtype_of_its_device():
@@ -118,22 +120,35 @@ def test_build_models_picks_the_dtype_of_its_device():
     assert robot.grid.resolution == 0.1 and cfg == SYNTH_EVAL_CONFIG
 
 
+SERVING_AND_SIMULATION_MODULES = (
+    "parallel", "parallel.streaming", "throughput_serving", "utils.profiling", "planning.retiming", "native",
+    "envs.controllers", "envs.grasps", "envs.fake_pybullet", "envs.pybullet_api", "envs.scene_replica",
+)
+
+
 def test_port_imports_without_jax():
-    """Every module of the port imports with `jax` blocked."""
+    """Every module of the port imports with `jax` blocked (the simulation
+    layer's modules against the port's own fake `pybullet`)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import grasptrajopt_tpu_torch as P\n"
+        "from grasptrajopt_tpu_torch.envs import fake_pybullet\n"
+        "assert fake_pybullet.install()\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
-        "print(len(names))\n"
+        "assert not any(k.startswith('grasptrajopt_tpu.') or k == 'grasptrajopt_tpu' for k in sys.modules)\n"
+        "print(' '.join(names))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 44
+    names = proc.stdout.split()
+    assert len(names) >= 55
+    for name in SERVING_AND_SIMULATION_MODULES:
+        assert f"grasptrajopt_tpu_torch.{name}" in names, name
 
 
 def test_synthetic_gripper_matches_the_arm_and_jax():
