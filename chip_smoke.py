@@ -227,12 +227,33 @@ result line:
      the native geometry library built (g++) and a 160x160 observation
      rendered bit-identically through it and the numpy rasterizer; the
      phase's PhaseTimer(sync=True) report;
- 12. result: the nvidia-smi line, one JSON line of kernel records (with
+ 12. sharded solve (parallel.{mesh,sharded}, bench.ShardedSolveBench:
+     bench.py's BENCH_MESH mode): a world of one on NCCL through
+     distributed_init (a file:// store in a temporary directory), the
+     full-width default flavour with every problem its own field (32
+     slabs packed into one 196 MB stacked table inside each step):
+     the step's Q and cost bit-identical to the unsharded
+     solve_batch_stacked of the same problems and tables, mean_cost
+     within 1e-6 relative of cost.mean(), K4 exactly 3 launches a step
+     and K1-K3 none, the plans finite, within the limits and pinned, K4
+     against plain at their final body points on the stacked table, no
+     host sync in one step; latency, plans/s, the unsharded step's wall
+     time in turns, the gates, one step's device time, ops and busy
+     share, and K4 on the stacked table (queued, against plain,
+     index_select and its bound);
+ 13. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
      call's time; K2 / K3's times queued, K3 also at the occupancy
      builds; K4's launches are the bench solve's, a served solve's are
-     printed before), and the last line
-     {"ok": true, "device": {...}}.
+     printed before; K4 on the sharded step's stacked tables), and the
+     last line {"ok": true, "device": {...}}.
+
+No solve of phases 5, 7, 11 and 12 may synchronize the host
+(torch.cuda.set_sync_debug_mode, `host_syncs`): the IK collision screen,
+one bench solve of each flavour, one served solve and one sharded step;
+phases 8 and 9 report the syncs of one closed-loop trial and one base
+solve (their host API's inputs and results, and the pipeline's
+decisions).
 """
 
 from __future__ import annotations
@@ -274,6 +295,23 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host's CPU model and the cores this process may use: host-bound
+    phases move with them."""
+    import os
+    import platform
+
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f if line.startswith("model name")), None)
+    except OSError:
+        pass
+    if model in (None, "unknown"):
+        model = platform.machine()
+    return f"{model}, {len(os.sched_getaffinity(0))} cores"
 
 
 def cuda_ms(fn, reps: int) -> list:
@@ -826,6 +864,10 @@ def phase_ik_collision(path, obs, out, dev):
         return out
 
     solve()  # warm-up
+    syncs = host_syncs(lambda: ik.solve_ik_batch(path.qc, goals, field, x["base_position"], multistart=True,
+                                                 seed=cfg.ik_seed))
+    if syncs:
+        raise AssertionError(f"the IK collision screen synchronizes the host: {syncs}")
     nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
     t0 = time.perf_counter()
     q, err_pos, err_rot, col = solve()
@@ -863,7 +905,8 @@ def phase_ik_collision(path, obs, out, dev):
     plain_ms = 1e3 * statistics.median(times["plain"]) / B
     print(f"[ik-collision] {B * G} goals x {cfg.ik_seeds} seeds, {cfg.ik_iterations} iterations, "
           f"{robot.num_surface_points} body points, table {table.shape[0]} rows: K4 launches {counts[3]} "
-          f"(1 + 2 x {cfg.ik_iterations}, as expected), K1-K3 none; K4 vs plain at the solutions' body points "
+          f"(1 + 2 x {cfg.ik_iterations}, as expected), K1-K3 none; host syncs in one screen "
+          f"(set_sync_debug_mode): none; K4 vs plain at the solutions' body points "
           f"max |err| {err:.3e}; ms per object (host clock, synchronized): kernel {kernel_ms:.3f}, the plain "
           f"lookup in its place {plain_ms:.3f} (runs {[round(1e3 * t / B, 3) for t in times['kernel']]} / "
           f"{[round(1e3 * t / B, 3) for t in times['plain']]})")
@@ -1053,6 +1096,41 @@ def lookup_bound(rows, n_points, n_bases, row_bytes=32):
     return bound_ms(28 * n_points + 4 * n_bases + row_bytes * touched, 50 * n_points)
 
 
+def time_k4(table, x, y, z, origin, shape, res, row) -> dict:
+    """K4 at one launch shape: the median device time a call with the
+    launches queued (`queued_ms`) of the kernel, its plain version and the
+    two library gathers of the same rows (torch.index_select and
+    table[rows]; "library" is the faster), 5 rounds in turns; a lone
+    call's CUDA-event time; the bound (`lookup_bound`) and the rows."""
+    import torch
+
+    from grasptrajopt_tpu_torch.ops import interp
+
+    rows = lookup_rows(x, y, z, origin, shape, res, row)
+    n_bases = interp._row_base(row, tuple(x.shape), x.device)[0].numel()
+    kernel_t, plain_t, sel_t, idx_t = [], [], [], []
+    for _ in range(5):  # in turns: plain, kernel, the two library gathers
+        plain_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad_reference(
+            table, x, y, z, origin, shape, res, row_offset=row)))
+        kernel_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad(
+            table, x, y, z, origin, shape, res, row_offset=row)))
+        sel_t.append(queued_ms(lambda: torch.index_select(table, 0, rows)))
+        idx_t.append(queued_ms(lambda: table[rows]))
+    km, pm, sm, im = (statistics.median(t) for t in (kernel_t, plain_t, sel_t, idx_t))
+    lone = statistics.median(cuda_ms(lambda: interp.field_lookup_packed_soa_grad(
+        table, x, y, z, origin, shape, res, row_offset=row), 5))
+    bm, by = lookup_bound(rows, x.numel(), n_bases, 8 * table.element_size())
+    return {"kernel": km, "plain": pm, "index_select": sm, "table[rows]": im, "library": min(sm, im),
+            "lone": lone, "bound": bm, "by": by, "rows": rows}
+
+
+def k4_time_line(t, n_points) -> str:
+    return (f"median device time a call, queued: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+            f"index_select {t['index_select']:.4f} ms, table[rows] {t['table[rows]']:.4f} ms; bound "
+            f"{t['bound']:.4f} ms ({t['by']}); {n_points / t['kernel'] * 1e3:.3e} points/s; a lone call "
+            f"{t['lone']:.4f} ms (CUDA events, with the host's launch gaps)")
+
+
 def phase_field_lookup_vs_plain(dev, bench):
     """K4 against its plain version on the same CUDA tensors: the bench's
     fine and coarse passes (the shared table, body points of the warm
@@ -1172,29 +1250,14 @@ def phase_field_lookup_vs_plain(dev, bench):
                 raise AssertionError("K4: the x gradient must be zero outside the grid along x")
             line += f"; {int(outside.sum())} points outside along x, zero x gradient there"
         if timed:
-            rows = lookup_rows(x, y, z, origin, shape, res, row)
-            n_bases = interp._row_base(row, tuple(x.shape), dev)[0].numel()
-            kernel_t, plain_t, sel_t, idx_t = [], [], [], []
-            for _ in range(5):  # in turns: plain, kernel, the two library gathers
-                plain_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad_reference(
-                    table, x, y, z, origin, shape, res, row_offset=row)))
-                kernel_t.append(queued_ms(lambda: interp.field_lookup_packed_soa_grad(
-                    table, x, y, z, origin, shape, res, row_offset=row)))
-                sel_t.append(queued_ms(lambda: torch.index_select(table, 0, rows)))
-                idx_t.append(queued_ms(lambda: table[rows]))
-            km, pm, sm, im = (statistics.median(t) for t in (kernel_t, plain_t, sel_t, idx_t))
+            t = time_k4(table, x, y, z, origin, shape, res, row)
             if timed == "fine":
+                rows = t["rows"]
                 print(f"[lookup] device kernels of one library gather: index_select "
                       f"{device_kernels(lambda: torch.index_select(table, 0, rows))}, "
                       f"table[rows] {device_kernels(lambda: table[rows])}")
-            lone = statistics.median(cuda_ms(lambda: interp.field_lookup_packed_soa_grad(
-                table, x, y, z, origin, shape, res, row_offset=row), 5))
-            bm, by = lookup_bound(rows, x.numel(), n_bases, 8 * table.element_size())
-            rec[timed] = (km, pm, min(sm, im), bm, by)
-            line += (f"; median device time a call, queued: kernel {km:.4f} ms, plain {pm:.4f} ms, "
-                     f"index_select {sm:.4f} ms, table[rows] {im:.4f} ms; bound {bm:.4f} ms ({by}); "
-                     f"{x.numel() / km * 1e3:.3e} points/s; a lone call {lone:.4f} ms (CUDA events, with the "
-                     "host's launch gaps)")
+            rec[timed] = (t["kernel"], t["plain"], t["library"], t["bound"], t["by"])
+            line += "; " + k4_time_line(t, x.numel())
         print(line)
         del got, want
 
@@ -1265,10 +1328,8 @@ def depth_rates(pb, bench):
     """The bench solve's sustained rate through stream_map at inflight 1
     and pb.INFLIGHT, alternated over DEPTH_ROUNDS rounds (1, 4 | 4, 1 |
     ...) of DEPTH_SOLVES solves, so a drift of the host's speed falls on
-    both depths; prints each depth's rates, mean and spread, each round's
-    ratio, and the host syncs of one solve (each drains the stream, so
-    the host cannot run ahead of the card)."""
-    syncs = host_syncs(bench.step)
+    both depths; prints each depth's rates, mean and spread, and each
+    round's ratio."""
     depths = (1, pb.INFLIGHT)
     rates = {k: [] for k in depths}
     for r in range(DEPTH_ROUNDS):
@@ -1282,8 +1343,7 @@ def depth_rates(pb, bench):
               f"{min(v):.3f}-{max(v):.3f}, {100 * (max(v) - min(v)) / mean[k]:.1f}% of the mean)"
               for k, v in rates.items())
           + f"; inflight {pb.INFLIGHT} / 1 by round {[round(x, 4) for x in ratios]}, of the means "
-            f"{mean[pb.INFLIGHT] / mean[1]:.4f}; host syncs in one solve (set_sync_debug_mode) "
-            f"{sum(syncs.values())}: {syncs}")
+            f"{mean[pb.INFLIGHT] / mean[1]:.4f}")
 
 
 def phase_bench(dev):
@@ -1316,6 +1376,10 @@ def phase_bench(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         timed = pb.time_solves(bench, reps=3, pipe_reps=5)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        # no host sync inside a solve: each would drain the stream
+        syncs = host_syncs(bench.step)
+        if syncs:
+            raise AssertionError(f"bench {flavour}: one solve synchronizes the host: {syncs}")
         if flavour == "default":
             depth_rates(pb, bench)
         nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
@@ -1331,7 +1395,8 @@ def phase_bench(dev):
         err = check_plan_fields(f"bench {flavour} final fields", bench.planner, bench.table, bench.full_q(Q))
         gates = bench.gates(Q)
         print(f"[bench] {flavour}: K4 launches a solve {counts[3]}; Q finite, within limits, pinned; "
-              f"final fields vs plain max |err| {err:.3e}; cost median {float(cost.median()):.4f}")
+              f"final fields vs plain max |err| {err:.3e}; cost median {float(cost.median()):.4f}; host syncs "
+              "in one solve (set_sync_debug_mode): none")
         print(f"[bench] {flavour}: latency {timed['latency_s'] * 1e3:.3f} ms (best of "
               f"{[round(t * 1e3, 3) for t in timed['latency_runs_s']]} ms), sustained "
               f"{timed['plans_per_s']:.3f} plans/s over 5 solves through stream_map at inflight {timed['inflight']}; "
@@ -1814,6 +1879,9 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
     prior = {"10": {"nearest_first": {n: results["tabletop"]["10"]["nearest_first"][n]
                                       for n in order if n != fail_name}}}
     prof = profile_trial(lambda: run("tabletop", [10], 5, ["nearest_first"], prior=prior))
+    syncs = host_syncs(lambda: run("tabletop", [10], 5, ["nearest_first"], prior=prior))
+    print(f"[closed-loop] host syncs in trial {fail_name} (its plan, rescue and scoring; "
+          f"set_sync_debug_mode): {sync_sites(syncs)}")
     print(f"[closed-loop] profile of trial {fail_name} (tabletop scene 10, its plan_object wall "
           f"{fail_wall:.3f} s in the counted run) again, with its harness scoring: "
           f"unprofiled wall {prof['wall_ms']:.1f} ms, device time {prof['device_ms']:.1f} ms, "
@@ -1987,6 +2055,8 @@ def phase_mobile(dev, tabletop_objects: int = 3, shelf_objects: int = 2, points_
     # one base solve (the shelf's last try) again: wall time and profile
     planner, qc_b, RTs_b = solves[-1]
     prof = profile_trial(lambda: planner.plan_goalset(qc_b, RTs_b, verbose=False))
+    syncs = host_syncs(lambda: planner.plan_goalset(qc_b, RTs_b, verbose=False))
+    print(f"[mobile] host syncs in one base solve (set_sync_debug_mode): {sync_sites(syncs)}")
     print(f"[mobile] one base solve ({RTs_b.shape[0]} goals, {planner.iterations} LM iterations, "
           f"{3 + RTs_b.shape[0] * planner.robot.num_opt_joints} variables, {planner.gripper_points.shape[0]} "
           f"gripper points): unprofiled wall {prof['wall_ms']:.1f} ms, device time {prof['device_ms']:.1f} ms, "
@@ -2293,6 +2363,12 @@ def host_syncs(fn) -> dict:
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
+        # the first set_sync_debug_mode of a process gives a notice once
+        # that names synchronizing operations: let it pass unrecorded
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
@@ -2302,6 +2378,13 @@ def host_syncs(fn) -> dict:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return dict(counts)
+
+
+def sync_sites(syncs: dict) -> str:
+    """`host_syncs`'s counts, most first, with their total."""
+    if not syncs:
+        return "none"
+    return f"{sum(syncs.values())}: " + ", ".join(f"{k} {v}" for k, v in sorted(syncs.items(), key=lambda kv: -kv[1]))
 
 
 def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, iterations: int = 10, goals: int = 4,
@@ -2425,8 +2508,9 @@ def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, ite
             raise AssertionError(f"serving: the trace {trace_path} names no field_lookup_kernel (K4)")
         t_trace = time.perf_counter() - t_trace
         del small, small_request
-    print(f"[serving] host syncs in one served solve (set_sync_debug_mode): "
-          f"{syncs if syncs else 'none'}")
+    if syncs:
+        raise AssertionError(f"serving: one served solve synchronizes the host: {syncs}")
+    print("[serving] host syncs in one served solve (set_sync_debug_mode): none")
     print(f"[serving] one served solve: wall {wall_ms:.1f} ms (the synchronous loop's mean), device {device_ms:.1f} ms "
           f"in {sum(device_n.values())} device ops (torch.profiler, device activity), busy "
           f"{100 * device_ms / wall_ms:.1f}%; K4 {sum(device_n[k] for k in k4_names)} launches, "
@@ -2506,6 +2590,159 @@ def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, ite
     return per_solve
 
 
+SHARDED_COST_RTOL = 1e-6  # the sharded solver's mean_cost against the unsharded cost.mean()
+
+
+def phase_sharded(dev):
+    """bench.py's sharded solve (BENCH_MESH) on the port: a world of one on
+    NCCL through parallel.distributed_init (a file:// store in a temporary
+    directory, no TCP port), parallel.data_mesh(1), and
+    bench.ShardedSolveBench at full width (the default flavour, B = 32 x 8
+    goals, T = 50, synth7 at 100 points a link, every problem its own
+    field: each step packs them into one stacked table of 32 slabs and
+    runs solve_batch_stacked under make_sharded_solver). Checks: the
+    step's Q and cost bit-identical (torch.equal) to the unsharded
+    solve_batch_stacked of the same problems and tables, mean_cost within
+    1e-6 relative of cost.mean(), K4 exactly 3 launches a step and K1-K3
+    none, the plans finite, within the limits and pinned, K4 against
+    plain at their final body points on the stacked table, no host sync
+    in one step. Reports latency (best of 3) and plans/s (stream_map at
+    inflight 4) beside the unsharded step's wall time (in turns), the
+    gates, one step under torch.profiler (device time, ops, busy share,
+    K4's device time against its bound), and K4 on the stacked table timed
+    as the bench's record (2 coarse + 1 fine pass). Returns K4's record."""
+    import collections
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from grasptrajopt_tpu_torch import bench as pb
+    from grasptrajopt_tpu_torch import parallel
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        if not parallel.distributed_init(coordinator=f"file://{tmp}/store", device=dev):
+            raise AssertionError("sharded: distributed_init started no process group")
+        try:
+            backend, world = dist.get_backend(), dist.get_world_size()
+            if backend != "nccl" or world != 1:
+                raise AssertionError(f"sharded: a {backend} group of {world}, expected NCCL at a world of one")
+            mesh = parallel.data_mesh(1)
+            robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
+            cfg = pb.FLAVOURS["default"]
+            t0 = time.perf_counter()
+            bench = pb.ShardedSolveBench(robot, cfg, mesh)
+            bench.step()
+            torch.cuda.synchronize(dev)
+            setup_s = time.perf_counter() - t0
+            reset_launch_counts()
+            Q, cost, _ = bench.step()
+            torch.cuda.synchronize(dev)
+            counts = launch_counts()
+            want = {"K1": 0, "K2": 0, "K3": 0, "K4": 3}
+            if counts != want:
+                raise AssertionError(f"sharded: launches {counts} a step, expected {want}")
+            mean_cost = float(bench.metrics["mean_cost"])
+
+            # the unsharded solve of the same problems on the same tables
+            fields = bench.field.expand(cfg.batch, -1)
+
+            def unsharded():
+                return bench.solve_shard(bench.qc_opt, bench.X0, bench.params, fields, fields)
+
+            Q_ref, cost_ref, _ = unsharded()
+            if not (torch.equal(Q, Q_ref) and torch.equal(cost, cost_ref)):
+                raise AssertionError(f"sharded: Q differs from the unsharded solve's by "
+                                     f"{float((Q - Q_ref).abs().max()):.3e} rad, cost by "
+                                     f"{float((cost - cost_ref).abs().max()):.3e}")
+            mean_ref = float(cost_ref.mean())
+            rel = abs(mean_cost - mean_ref) / abs(mean_ref)
+            if not rel <= SHARDED_COST_RTOL:
+                raise AssertionError(f"sharded: mean_cost {mean_cost!r} against cost.mean() {mean_ref!r} "
+                                     f"({rel:.3e} relative)")
+            check_plans("sharded", bench.full_q(Q), bench.qc, robot)
+            tables, base = bench.planner.pack_stacked_fields(fields, fields)
+            k4_err = check_plan_fields("sharded plans' final fields", bench.planner, tables, bench.full_q(Q),
+                                       field_base=base)
+            syncs = host_syncs(bench.step)
+            if syncs:
+                raise AssertionError(f"sharded: one step synchronizes the host: {syncs}")
+            print(f"[sharded] {backend} process group of {world} (parallel.distributed_init, file:// store), "
+                  f"data_mesh {bench.mesh}; {cfg.batch} problems x {cfg.goal_capacity} goals, T = {cfg.T}, "
+                  f"{robot.num_surface_points} body points, every problem its own {robot.grid.size}-cell field: "
+                  f"a stacked table of {tables.shape[0]} rows ({tables.numel() * tables.element_size() / 1e6:.1f} "
+                  f"MB) a step; set-up (IK warm start, first step) {setup_s:.2f} s; launches a step {counts}; Q "
+                  f"and cost bit-identical to the unsharded solve_batch_stacked; mean_cost {mean_cost!r} against "
+                  f"cost.mean() {mean_ref!r} ({rel:.2e} relative, limit {SHARDED_COST_RTOL:g}); plans finite, "
+                  f"within the limits and pinned; K4 vs plain at their final body points on the stacked table "
+                  f"max |err| {k4_err:.3e}; host syncs in one step (set_sync_debug_mode): none")
+
+            timed = pb.time_solves(bench, reps=3, pipe_reps=5)
+            sharded_s, unsharded_s = [], []
+            for _ in range(3):  # in turns, the unsharded step packing its table as the sharded one does
+                for fn, times in ((bench.step, sharded_s), (unsharded, unsharded_s)):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize(dev)
+                    times.append(time.perf_counter() - t0)
+            gates = bench.gates(timed["Q"])
+            print(f"[sharded] latency {timed['latency_s'] * 1e3:.3f} ms (best of "
+                  f"{[round(t * 1e3, 3) for t in timed['latency_runs_s']]} ms), sustained {timed['plans_per_s']:.3f} "
+                  f"plans/s over 5 steps through stream_map at inflight {timed['inflight']}; in turns, sharded "
+                  f"{[round(t * 1e3, 3) for t in sharded_s]} ms against unsharded "
+                  f"{[round(t * 1e3, 3) for t in unsharded_s]} ms (best {min(sharded_s) / min(unsharded_s):.4f} "
+                  f"x); gates {json.dumps(gates)} (reported, not gated)")
+
+            # one step's device time, device activity only (a host trace of ~70k launches is slow)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                bench.step()
+                torch.cuda.synchronize(dev)
+            device_ns, device_n = collections.Counter(), collections.Counter()
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == DeviceType.CUDA:
+                    device_ns[e.name()] += e.duration_ns()
+                    device_n[e.name()] += 1
+            del prof
+            device_ms = sum(device_ns.values()) / 1e6
+            k4_names = [k for k in device_ns if "field_lookup_kernel" in k]
+            k4_profiled_ms = sum(device_ns[k] for k in k4_names) / 1e6
+            if sum(device_n[k] for k in k4_names) != 3:
+                raise AssertionError(f"sharded: the profiled step ran K4 {sum(device_n[k] for k in k4_names)} times")
+
+            # K4 on the stacked table at the plans' final body points, as the bench's record: 2 coarse + 1 fine
+            g, T = robot.grid, cfg.T
+            row = (torch.arange(T, device=dev) >= T + bench.planner.standoff_offset).long()[:, None] * g.size
+            row = row + base[:, None, None]
+            t_pass = {}
+            for stride in (1, bench.planner.coarse_stride):
+                x, y, z = planner_points(robot, bench.full_q(Q), None, stride)
+                t_pass[stride] = time_k4(tables, x, y, z, g.origin, g.shape, g.resolution, row)
+                print(f"[sharded] K4 on the stacked table, stride {stride} {tuple(x.shape)}: "
+                      + k4_time_line(t_pass[stride], x.numel()))
+            fine, coarse = t_pass[1], t_pass[bench.planner.coarse_stride]
+            rec = {key: fine[key] + 2 * coarse[key] for key in ("kernel", "plain", "index_select", "library", "bound")}
+            by = fine["by"] if fine["by"] == coarse["by"] else "operations"
+            busy = device_ms / (1e3 * timed["latency_s"])
+            top = [[k[:60], device_n[k], round(v / 1e6, 3)] for k, v in device_ns.most_common(6)]
+            print(f"[sharded] one step: wall {timed['latency_s'] * 1e3:.1f} ms (the best synchronized step), device "
+                  f"{device_ms:.1f} ms in {sum(device_n.values())} device ops (torch.profiler, device activity), "
+                  f"busy {100 * busy:.1f}%; K4 3 launches, {k4_profiled_ms:.4f} ms profiled against a bound of "
+                  f"{rec['bound']:.4f} ms ({by}); top device ops {top}")
+            print(f"[sharded] K4 a step on the stacked table (2 coarse + 1 fine, queued): kernel "
+                  f"{rec['kernel']:.4f} ms, plain {rec['plain']:.4f} ms, index_select {rec['index_select']:.4f} ms, "
+                  f"library (the faster gather) {rec['library']:.4f} ms, bound {rec['bound']:.4f} ms ({by}), "
+                  f"{rec['bound'] / rec['kernel']:.1%} of the bound; phase {time.perf_counter() - t_phase:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    return {"launches": counts["K4"], "max_abs_err": k4_err, "ms": rec["kernel"], "plain_ms": rec["plain"],
+            "bound_ms": rec["bound"], "bound_by": by, "library_ms": rec["library"]}
+
+
 def main() -> int:
     import torch
 
@@ -2524,9 +2761,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; host {host_cpu()}")
 
     phase_build()
+    # host_syncs must see a sync where there is one
+    if not host_syncs(lambda: torch.ones(1, device=dev).item()):
+        raise AssertionError("host_syncs found no sync in a .item() of a CUDA tensor")
     grid_pts = make_synthetic_gto_robot(device=dev, points_per_link=1).grid.grid_points(np.float32)
     max_err, k_ms, p_ms, b_ms, b_by = phase_kernel_vs_plain(grid_pts, dev)
     near = phase_nearest_vs_plain(grid_pts, dev)
@@ -2539,9 +2779,10 @@ def main() -> int:
     occ = phase_mobile(dev)
     phase_builder(dev)
     serving_k4 = phase_serving(dev)
+    sharded = phase_sharded(dev)
     print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
           f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
-          f"(max |err| there {ik_err:.3e}), a served solve {serving_k4}")
+          f"(max |err| there {ik_err:.3e}), a served solve {serving_k4}, a sharded step {sharded['launches']}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):
@@ -2571,6 +2812,8 @@ def main() -> int:
                "tools/probe_vmem_gather.py:52", k4_launches["default"], *k4_fields(k4["float32"])),
         record("K4 field_lookup, bf16-row mode (one 16-byte row a point, upcast to float32)", "field_lookup.cu",
                "tools/probe_vmem_gather.py:52", k4_launches["bf16"], *k4_fields(k4["bf16"])),
+        record("K4 field_lookup on per-problem stacked tables (the sharded bench step: 32 slabs, 196 MB)",
+               "field_lookup.cu", "tools/probe_vmem_gather.py:52", sharded["launches"], *k4_fields(sharded)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -16,16 +16,26 @@ and once per candidate pass: 3 times in the default and long-horizon
 and bf16 flavours (2 coarse + 1 fine; final_trust skips the post-scan
 pass), 7 in the two-pass flavour (1 + 3 x 2).
 
+The mesh mode (bench.py's BENCH_MESH=N, `ShardedSolveBench`) gives every
+problem its own copy of the field and shards the batch over N ranks, one
+card each: each rank packs its shard's fields into one stacked table
+inside the timed step and solves it (`solve_batch_stacked`, K4 on the
+stacked table), and one all_reduce gives the global mean cost.
+
 Run on a machine with a CUDA device (there is no CPU measurement path):
 
     python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon|bf16] [--profile]
+    python -m grasptrajopt_tpu_torch.bench --mesh 1         # the sharded solve, a world of one
+    torchrun --nproc_per_node N -m grasptrajopt_tpu_torch.bench --mesh N
 
-It prints one JSON line: latency (best of `reps` synchronized solves),
-sustained plans/s (`pipe_reps` solves through `parallel.stream_map` with
-`INFLIGHT` = 4 solves outstanding, as bench.py measures it), the table's
-`itemsize` and the corner-row bytes K4 reads a solve (`gather_bytes`, as
-the JAX bench counts them), the bench's quality gates (`quality_gates`)
-and, with --profile, where one solve's time goes (`profile_solve`).
+It prints one JSON line (in mesh mode rank 0 does): latency (best of
+`reps` synchronized solves), sustained plans/s (`pipe_reps` solves
+through `parallel.stream_map` with `INFLIGHT` = 4 solves outstanding, as
+bench.py measures it), the table's `itemsize` and the corner-row bytes
+K4 reads a solve (`gather_bytes`, as the JAX bench counts them), the
+bench's quality gates (`quality_gates`), in mesh mode `mesh` ("Nxcuda")
+and the global `mean_cost`, and, with --profile, where one solve's time
+goes (`profile_solve`).
 """
 
 from __future__ import annotations
@@ -33,14 +43,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from grasptrajopt_tpu_torch.parallel import stream_map
+from grasptrajopt_tpu_torch.parallel import data_mesh, distributed_init, make_sharded_solver, shard_batch, stream_map
 from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
 from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
 from grasptrajopt_tpu_torch.planning.utils import interpolate_waypoints
@@ -240,8 +252,8 @@ class SolveBench:
         B = cfg.batch
         self.qc = torch.as_tensor(SYNTH_DEFAULT_POSE, dtype=dt, device=dev)
         self.tf_goal = torch.as_tensor(synthetic_goal_sets(B, cfg.goal_capacity), dtype=dt, device=dev)
-        field = torch.as_tensor(make_cost_field(robot.grid), dtype=dt, device=dev)
-        packed = robot.grid.pack(field, self.planner.field_dtype)
+        self.field = torch.as_tensor(make_cost_field(robot.grid), dtype=dt, device=dev)
+        packed = robot.grid.pack(self.field, self.planner.field_dtype)
         # one shared table: the scene field and the target-free field, here both the slab's
         self.table = torch.cat([packed, packed], dim=0)
         self.X0, self.warm_goal = warm_start(robot, self.ik, self.qc, self.tf_goal, cfg.T - 2)
@@ -285,6 +297,48 @@ class SolveBench:
         return quality_gates(
             T_end.double().cpu().numpy(), self.tf_goal.double().cpu().numpy(), pts.double().cpu().numpy()
         )
+
+
+class ShardedSolveBench(SolveBench):
+    """bench.py's mesh mode (BENCH_MESH=N): the same problems, but every
+    problem carries its own copy of the slab field (bench.py's
+    `shared_scene = False`), and the batch is sharded over the ranks of
+    `mesh`, one device each. `step` is the sharded solver
+    (`parallel.make_sharded_solver`) around each rank's solve of its
+    shard: its fields packed into one stacked corner table
+    (`GTOPlanner.pack_stacked_fields`, each problem's slab picked by its
+    `field_base`) and `solve_batch_stacked`. Every rank returns its own
+    shard's (Q, cost, aux); `metrics` holds the last step's global
+    mean cost."""
+
+    def __init__(self, robot, cfg: SolveBenchConfig, mesh):
+        super().__init__(robot, cfg)
+        self.mesh = mesh
+        fields = self.field.expand(cfg.batch, -1)  # (B, S): one field a problem
+        self.local = shard_batch((self.qc_opt, self.X0, self.params, fields, fields), mesh)
+        planner, solvers = self.planner, self.solvers
+
+        def solve_shard(qc_opt, X0, params, sdf_cost_all, sdf_cost_obstacle):
+            tables, base = planner.pack_stacked_fields(sdf_cost_all, sdf_cost_obstacle)
+            return solvers.solve_batch_stacked(
+                qc_opt, X0, {**params, "field_base": base}, {"packed_fields": tables}
+            )
+
+        self.solve_shard = solve_shard
+        self.sharded = make_sharded_solver(solve_shard, mesh)
+        self.metrics = None
+
+    def step(self):
+        """One sharded solve: this rank's (Q (B / n, T, n_opt), cost, aux)."""
+        out, self.metrics = self.sharded(*self.local)
+        return out
+
+    def gates(self, Q):
+        """quality_gates of every rank's plans: the shards gathered in rank
+        order."""
+        shards = [torch.empty_like(Q) for _ in range(self.mesh.size())]
+        dist.all_gather(shards, Q.contiguous(), group=self.mesh.get_group())
+        return super().gates(torch.cat(shards))
 
 
 def stream_solves(bench: SolveBench, solves: int, inflight: int = INFLIGHT):
@@ -355,17 +409,25 @@ def profile_solve(bench: SolveBench) -> dict:
     }
 
 
-def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool = False) -> dict:
+def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool = False, mesh=None) -> dict:
     """The bench on one CUDA device: set-up, timing and gates, and with
-    `profile` where one solve's time goes (`profile_solve`)."""
+    `profile` where one solve's time goes (`profile_solve`). With `mesh`
+    (`parallel.data_mesh`) the sharded solve of bench.py's mesh mode
+    (`ShardedSolveBench`) on this rank's device; the result gains "mesh"
+    ("<n>xcuda") and the global mean cost, and has no profile (bench.py
+    skips its attribution in mesh mode)."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the solve bench measures a CUDA device; none is available")
+    if mesh is not None and profile:
+        raise ValueError("the sharded solve is not profiled (bench.py skips its attribution in mesh mode)")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
     t0 = time.perf_counter()
-    bench = SolveBench(robot, cfg)
+    bench = SolveBench(robot, cfg) if mesh is None else ShardedSolveBench(robot, cfg, mesh)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     timed = time_solves(bench, cfg.reps, cfg.pipe_reps)
@@ -384,6 +446,9 @@ def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool
         "gather_bytes": bench.gather_bytes(),
         "quality": bench.gates(timed["Q"]),
     }
+    if mesh is not None:
+        out["mesh"] = f"{mesh.size()}x{mesh.device_type}"
+        out["mean_cost"] = float(bench.metrics["mean_cost"])
     if profile:
         out["profile"] = profile_solve(bench)
     return out
@@ -395,13 +460,30 @@ def main():
     ap.add_argument("--reps", type=int, default=None)
     ap.add_argument("--pipe-reps", type=int, default=None)
     ap.add_argument("--profile", action="store_true", help="also profile one solve (torch.profiler)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="bench.py's BENCH_MESH=N: every problem with its own field, the batch sharded over N "
+                         "ranks of one card each (N > 1 under torchrun --nproc_per_node N); rank 0 prints")
     args = ap.parse_args()
+    if args.mesh and args.profile:
+        ap.error("--profile is not available with --mesh (bench.py skips its attribution in mesh mode)")
     cfg = FLAVOURS[args.flavour]
     if args.reps is not None:
         cfg = dataclasses.replace(cfg, reps=args.reps)
     if args.pipe_reps is not None:
         cfg = dataclasses.replace(cfg, pipe_reps=args.pipe_reps)
-    print(json.dumps({"flavour": args.flavour, **run(cfg, profile=args.profile)}))
+    if not args.mesh:
+        print(json.dumps({"flavour": args.flavour, **run(cfg, profile=args.profile)}))
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        # torchrun's environment names the cluster; a process alone is a world of one
+        if not distributed_init(device="cuda"):
+            distributed_init(coordinator=f"file://{tmp}/store", device="cuda")
+        try:
+            out = run(cfg, mesh=data_mesh(args.mesh))
+            if dist.get_rank() == 0:
+                print(json.dumps({"flavour": args.flavour, **out}))
+        finally:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Voxel grids, depth-camera cost fields, mesh surface clouds, scene point
-sets and the differentiable SDF program (port of grasptrajopt_tpu.fields)."""
+sets and the differentiable SDF program (port of grasptrajopt_tpu/fields)."""
 
 from grasptrajopt_tpu_torch.fields.voxel_grid import VoxelGrid, OccupancyGrid2D
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import (

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from grasptrajopt_tpu_torch.ops.constants import device_vector
 from grasptrajopt_tpu_torch.ops.interp import (
     field_lookup_nearest,
     field_lookup_trilinear,
@@ -86,7 +87,7 @@ class VoxelGrid:
         return (np.asarray(self.origin) + idx * self.resolution).astype(dtype)
 
     def origin_tensor(self, dtype, device) -> torch.Tensor:
-        return torch.tensor(self.origin, dtype=dtype, device=device)
+        return device_vector(self.origin, dtype, device)
 
     def offsets(self, points):
         """Flat row-major cell offsets (...,) long of (..., 3) points
@@ -171,7 +172,7 @@ class OccupancyGrid2D:
 
     def offsets(self, points_xy):
         """Flat offsets (...,) int32 of (..., 2) points (floor + clamp)."""
-        origin = torch.tensor(self.origin, dtype=points_xy.dtype, device=points_xy.device)
+        origin = device_vector(self.origin, points_xy.dtype, points_xy.device)
         return points_to_offsets_2d(points_xy, origin, self.shape, self.resolution)
 
     def lookup(self, grid_flat, points_xy):

@@ -1,4 +1,4 @@
-"""Robot models: URDF parsing, meshes, kinematics (port of grasptrajopt_tpu.models)."""
+"""Robot models: URDF parsing, meshes, kinematics (port of grasptrajopt_tpu/models)."""
 
 from grasptrajopt_tpu_torch.models.urdf import Urdf, UrdfJoint, UrdfLink, parse_urdf_file, parse_urdf_string
 from grasptrajopt_tpu_torch.models.kinematics import KinematicModel

@@ -177,7 +177,7 @@ class RobotModel(Model):
             np.argsort(np.asarray(order, dtype=np.int64)), device=self.device
         )
         self._opt_idx = torch.as_tensor(self.optimized_joint_indexes, device=self.device)
-        self._par_idx = torch.as_tensor(self.parameter_joint_indexes, device=self.device)
+        self._par_idx = torch.as_tensor(self.parameter_joint_indexes, dtype=torch.long, device=self.device)
         self._fk_all = kinematics.fk_fn(self.device, self.dtype)
         self._fk_components = kinematics.fk_components_fn(self.device, self.dtype)
 
@@ -271,9 +271,8 @@ class RobotModel(Model):
             )
             for i in range(3)
         ]
-        bottom = torch.zeros_like(rows[0]) + torch.tensor(
-            [0.0, 0.0, 0.0, 1.0], dtype=rows[0].dtype, device=rows[0].device
-        )
+        # [0, 0, 0, 1] by fills: a host constant would synchronize the stream
+        bottom = torch.cat([torch.zeros_like(rows[0][..., :3]), torch.ones_like(rows[0][..., 3:])], dim=-1)
         return torch.stack(rows + [bottom], dim=-2)
 
     def frame_of(self, link: str) -> int:

@@ -39,9 +39,9 @@ def points_to_offsets(points, origin, shape: Tuple[int, int, int], resolution):
     """Flat row-major voxel offsets of (..., 3) points (floor + clamp)."""
     u = (points - origin) / resolution
     idx = torch.floor(u).to(torch.long)
-    hi = torch.tensor([shape[0] - 1, shape[1] - 1, shape[2] - 1], device=points.device)
-    idx = torch.minimum(torch.clamp(idx, min=0), hi)
-    return idx[..., 2] + shape[2] * (idx[..., 1] + shape[1] * idx[..., 0])
+    # per-axis Python bounds: a bound tensor from the host would synchronize the stream
+    ix, iy, iz = (torch.clamp(idx[..., i], 0, shape[i] - 1) for i in range(3))
+    return iz + shape[2] * (iy + shape[1] * ix)
 
 
 def points_to_offsets_2d(points_xy, origin, shape: Tuple[int, int], resolution):
@@ -50,9 +50,8 @@ def points_to_offsets_2d(points_xy, origin, shape: Tuple[int, int], resolution):
     JAX package's)."""
     u = (points_xy - origin) / resolution
     idx = torch.floor(u).to(torch.int32)
-    hi = torch.tensor([shape[0] - 1, shape[1] - 1], dtype=torch.int32, device=points_xy.device)
-    idx = torch.minimum(torch.clamp(idx, min=0), hi)
-    return idx[..., 1] + shape[1] * idx[..., 0]
+    ix, iy = (torch.clamp(idx[..., i], 0, shape[i] - 1) for i in range(2))
+    return iy + shape[1] * ix
 
 
 def field_lookup_nearest(field_flat, points, origin, shape, resolution):
@@ -64,8 +63,8 @@ def _base_and_frac(points, origin, shape, resolution):
     """AoS points (..., 3): the clamped base cell (..., 3) long and the
     clamped fraction (..., 3) inside it."""
     u = (points - origin) / resolution
-    hi = torch.tensor([shape[0] - 2, shape[1] - 2, shape[2] - 2], device=points.device)
-    base = torch.minimum(torch.clamp(torch.floor(u).to(torch.long), min=0), hi)
+    cell = torch.floor(u).to(torch.long)
+    base = torch.stack([torch.clamp(cell[..., i], 0, shape[i] - 2) for i in range(3)], dim=-1)
     return base, torch.clamp(u - base.to(points.dtype), 0.0, 1.0)
 
 

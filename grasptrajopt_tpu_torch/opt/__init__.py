@@ -2,7 +2,7 @@
 box-constrained LM) and the builder stack for problems stated by the user:
 the block layout, `OptimizationBuilder`, `Optimization`, the
 augmented-Lagrangian NLP solver, the ADMM QP solver and the `Solver`
-backends (port of grasptrajopt_tpu.opt)."""
+backends (port of grasptrajopt_tpu/opt)."""
 
 from grasptrajopt_tpu_torch.opt.lm import make_box_lm_solver, solve_box_lm
 from grasptrajopt_tpu_torch.opt.trajectory import (

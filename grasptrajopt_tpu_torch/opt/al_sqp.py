@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, jacfwd, vmap
 
+from grasptrajopt_tpu_torch.ops.constants import device_vector
+
 
 class ALSQPConfig(NamedTuple):
     outer_iterations: int = 10
@@ -86,7 +88,7 @@ def make_al_sqp_solver(
         dtype, dev = x0.dtype, x0.device
         n = x0.shape[0]
         eye = torch.eye(n, dtype=dtype, device=dev)
-        alphas = torch.tensor(config.alphas, dtype=dtype, device=dev)
+        alphas = device_vector(config.alphas, dtype, dev)
         lo = torch.as_tensor(lo, dtype=dtype, device=dev)
         hi = torch.as_tensor(hi, dtype=dtype, device=dev)
         nh = h_fn(x0, params).shape[0]

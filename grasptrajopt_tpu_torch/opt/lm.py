@@ -26,6 +26,7 @@ import torch
 from torch.func import grad_and_value, jacfwd, vmap
 from torch.utils._pytree import tree_map
 
+from grasptrajopt_tpu_torch.ops.constants import device_vector
 from grasptrajopt_tpu_torch.ops.smallchol import (
     MAX_UNROLL_N,
     cholesky_small,
@@ -67,7 +68,7 @@ def make_box_lm_solver(
         x = torch.minimum(torch.maximum(x0, lo), hi)
         B, n = x.shape
         eye = torch.eye(n, dtype=x.dtype, device=x.device)
-        alphas = torch.tensor(config.alphas, dtype=x.dtype, device=x.device)
+        alphas = device_vector(config.alphas, x.dtype, x.device)
 
         def lin(xx, p):
             def f(v):
@@ -100,7 +101,9 @@ def make_box_lm_solver(
             if n <= MAX_UNROLL_N:
                 dx = -cholesky_solve_small(cholesky_small(A), g)
             else:
-                dx = -torch.linalg.solve(A, g)
+                # solve_ex: torch.linalg.solve's check of the result reads
+                # it on the host; A is positive definite (lambda, jitter)
+                dx = -torch.linalg.solve_ex(A, g)[0]
 
             cands = torch.minimum(
                 torch.maximum(x[:, None] + alphas[None, :, None] * dx[:, None], lo), hi

@@ -34,6 +34,7 @@ from grasptrajopt_tpu_torch.ops.block_tridiag import (
     block_tridiag_solve,
     block_tridiag_solve_cr,
 )
+from grasptrajopt_tpu_torch.ops.constants import device_vector
 
 
 class TrajectoryConfig(NamedTuple):
@@ -146,11 +147,10 @@ def make_trajectory_solver(
         X0 = torch.minimum(torch.maximum(X0.to(dtype), lo), hi)
         eye = torch.eye(n, dtype=dtype, device=dev)
         t_all = torch.arange(T, device=dev)
-        vel_diag = w * torch.where(
-            torch.arange(F, device=dev) < F - 1,
-            torch.tensor(2.0, dtype=dtype, device=dev),
-            torch.tensor(1.0, dtype=dtype, device=dev),
-        )  # (F,)
+        # 2, ..., 2, 1 by fills: a host constant would synchronize the stream
+        vel_diag = torch.full((F,), 2.0, dtype=dtype, device=dev)
+        vel_diag[F - 1:].fill_(1.0)
+        vel_diag = w * vel_diag  # (F,)
         L_off = (-w * eye).expand(B, F - 1, n, n)
 
         def step_lin(q, t, aux, p, step_fn):
@@ -271,7 +271,7 @@ def make_trajectory_solver(
         lam0 = torch.full((B,), config.lambda_init, dtype=dtype, device=dev)
         accepts = []
         if not config.single_pass:
-            alphas = torch.tensor(config.alphas, dtype=dtype, device=dev)
+            alphas = device_vector(config.alphas, dtype, dev)
             A = alphas.shape[0]
             # the candidate ladder rides the batch dimension: problem b's
             # candidate a is row b * A + a of one residual pass

@@ -230,6 +230,11 @@ class GTORobotModel(RobotModel):
         )
         return self.grid
 
+    @property
+    def workspace_points(self) -> np.ndarray:
+        """The grid's cell corners, row-major (size, 3), host numpy."""
+        return self.grid.grid_points()
+
     def points_to_offsets(self, points):
         """Flat cell offsets of (..., 3) points on the robot's grid."""
         return self.grid.offsets(points)

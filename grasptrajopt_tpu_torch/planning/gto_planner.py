@@ -397,7 +397,7 @@ class GTOPlanner:
         which interpolates to T - 2 samples.)"""
         data = interpolate_waypoints(qc, q_solutions, self.T)
         pin = torch.zeros(qc.shape[-1], dtype=torch.bool, device=qc.device)
-        pin[self.robot.parameter_joint_indexes] = True
+        pin.index_fill_(0, self.robot._par_idx, True)  # a device index: no host copy
         return torch.where(pin, qc, data)
 
     # -- warm starts ------------------------------------------------------------
@@ -470,7 +470,8 @@ class GTOPlanner:
         costs, dists = self.rank_seed_scores(seeds, sdf_cost_obstacle, base_position, scene_obstacle)
         best = self.rank_pick(costs, dists)
         self._last_rank_pick = best
-        return seeds[best], costs, dists
+        # index_select: indexing by a 0-dim tensor would read it on the host
+        return seeds.index_select(0, best.reshape(1))[0], costs, dists
 
     # -- public API ---------------------------------------------------------------
 

@@ -149,6 +149,11 @@ class IKSolver:
     # -- solve API ------------------------------------------------------------
 
     def _tensor(self, a):
+        """`a` in the robot's dtype on its device; a tensor already there is
+        returned as it is, so a screen given device tensors copies nothing
+        from the host."""
+        if torch.is_tensor(a):
+            return a.to(device=self.robot.device, dtype=self.robot.dtype)
         return torch.as_tensor(a, dtype=self.robot.dtype, device=self.robot.device)
 
     def _shared(self, sdf_cost_obstacle):

@@ -428,7 +428,7 @@ class GraspPipeline:
         q_start[:n] = np.asarray(q_solutions).T
         Q, cost, _ = planner.plan_pergoal_batch(
             self._tensor(qc), self._tensor(tf_goal)[None],
-            torch.tensor([n], device=self.robot.device), self._tensor(q_start)[None],
+            torch.full((1,), n, device=self.robot.device), self._tensor(q_start)[None],
             self._tensor(np.asarray(base_position)), True, self.axis_standoff, **sources,
         )
         return Q[0, :n].transpose(1, 2).cpu().numpy(), cost[0, :n].cpu().numpy()

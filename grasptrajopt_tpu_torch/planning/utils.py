@@ -10,6 +10,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from grasptrajopt_tpu_torch.ops.constants import device_vector
+
 
 def get_data_dir() -> str:
     """Robot asset tree (URDFs, meshes, configs): GTO_DATA_DIR, else
@@ -53,6 +55,9 @@ def interpolate_waypoints(qc, qs, n: int):
     """The 2-waypoint clamped cubic (smoothstep) warm start: n samples at
     t = linspace(0, 1, n + 2)[1:-1] from qc (ndof,) to qs (..., ndof)
     -> (..., n, ndof)."""
-    t = torch.linspace(0.0, 1.0, n + 2, dtype=torch.float64)[1:-1].to(qc.dtype).to(qc.device)
+    # the samples computed on the host as before, placed by fills: a copy
+    # from host memory would synchronize the stream
+    t = device_vector(torch.linspace(0.0, 1.0, n + 2, dtype=torch.float64)[1:-1].to(qc.dtype).tolist(),
+                      qc.dtype, qc.device)
     s = 3.0 * t**2 - 2.0 * t**3
     return qc + s[:, None] * (qs - qc)[..., None, :]

@@ -1,4 +1,4 @@
-"""SE(3) and quaternion primitives (port of grasptrajopt_tpu.spatial)."""
+"""SE(3) and quaternion primitives (port of grasptrajopt_tpu/spatial)."""
 
 from grasptrajopt_tpu_torch.spatial.quaternion import (
     qangle_deg,

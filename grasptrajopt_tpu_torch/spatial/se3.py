@@ -86,8 +86,12 @@ def rt2tr(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom = bottom + torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # [0, 0, 0, 1] by fills: a host constant would synchronize the stream
+    bottom = torch.cat(
+        [torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device),
+         torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)],
+        dim=-1,
+    )
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -124,5 +128,5 @@ def transform_directions(T, dirs):
 def standoff(offset: float, axis: str, dtype=torch.float32, device=None):
     """Pure-translation standoff transform along a named axis."""
     pose = torch.eye(4, dtype=dtype, device=device)
-    pose[{"x": 0, "y": 1, "z": 2}[axis], 3] = offset
+    pose[{"x": 0, "y": 1, "z": 2}[axis], 3].fill_(offset)  # a fill: assigning a float copies it from the host
     return pose

@@ -1,7 +1,7 @@
 """Result-JSON scoring (pure host logic, no simulator needed).
 
 Copy of grasptrajopt_tpu/utils/results.py (host-only; any
-`grasptrajopt_tpu.*` import pulls in JAX).
+import from the JAX package pulls in JAX).
 
 The experiment drivers emit the reference's result schema:
   {scene_id: {ordering: {object: {reward, plan (ndof x 50), checking_time,

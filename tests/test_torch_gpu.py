@@ -813,3 +813,64 @@ def test_phase_timer_sync_waits_for_the_card(cuda):
     torch.cuda.synchronize()
     assert waits.totals["sleep"] > 0.05 > lazy.totals["sleep"]
     assert "allocated_bytes.all.current" in device_memory_stats(cuda)
+
+
+def _small_bench(cuda, **kw):
+    from grasptrajopt_tpu_torch import bench as pb
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    robot = make_synthetic_gto_robot(device=cuda, dtype=torch.float32, points_per_link=8)
+    return pb, robot, pb.SolveBenchConfig(batch=4, goal_capacity=2, T=12, **kw)
+
+
+@pytest.mark.parametrize("flavour", ["default", "two_pass"])
+def test_bench_and_served_solves_make_no_host_sync(cuda, flavour):
+    """A bench solve and a served solve enqueue all their work without
+    waiting on the card (set_sync_debug_mode("error") raises at a sync)."""
+    from grasptrajopt_tpu_torch import throughput_serving as serving
+
+    pb, robot, cfg = _small_bench(cuda, **({} if flavour == "default" else dict(
+        single_pass=False, coarse_iterations=0, final_trust=False)))
+    bench = pb.SolveBench(robot, cfg)
+    server = serving.Server(iterations=2, goals=2, device=cuda, points_per_link=8)
+    request = server.request(0, 4)
+    bench.step(), server.solve(*request)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Q, _, _ = bench.step()
+        Qs, _, _ = server.solve(*request)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(Qs).all())
+
+
+def test_sharded_step_at_a_world_of_one_is_the_unsharded_solve(cuda, tmp_path, monkeypatch):
+    """bench.py's mesh mode on NCCL at a world of one: the step's plans and
+    costs bit for bit the unsharded stacked solve's, its mean cost
+    cost.mean() within 1e-6 relative, K4 3 launches a step."""
+    import torch.distributed as dist
+
+    from grasptrajopt_tpu_torch import parallel
+    from grasptrajopt_tpu_torch.ops import interp
+    from grasptrajopt_tpu_torch.parallel import mesh as port_mesh
+
+    for k in port_mesh.CLUSTER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    pb, robot, cfg = _small_bench(cuda)
+    assert parallel.distributed_init(coordinator=f"file://{tmp_path}/store", device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        bench = pb.ShardedSolveBench(robot, cfg, parallel.data_mesh(1))
+        bench.step()
+        before = interp.field_lookup_launches
+        Q, cost, _ = bench.step()
+        torch.cuda.synchronize()
+        assert interp.field_lookup_launches == before + 3
+        fields = bench.field.expand(cfg.batch, -1)
+        Q_ref, cost_ref, _ = bench.solve_shard(bench.qc_opt, bench.X0, bench.params, fields, fields)
+        mean_cost = float(bench.metrics["mean_cost"])
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(Q, Q_ref) and torch.equal(cost, cost_ref)
+    assert mean_cost == pytest.approx(float(cost_ref.mean()), rel=1e-6)
