@@ -116,11 +116,12 @@ result line:
      the faster is the yardstick), each call's launches queued back to
      back (`queued_ms`). A report of the IK warm start (single seed and
      multistart reach on the bench's goals). Then each flavour, warmed up,
-     timed (latency: best of 3 synchronized solves; sustained plans/s: 5
-     solves through parallel.stream_map with 4 in flight, as bench.py
-     measures it) and counted once; the default flavour's sustained rate
-     also at inflight 1 and 4 alternated over 3 rounds (1, 4 | 4, 1 |
-     1, 4) of 6 solves each, with each depth's spread and the host
+     timed (latency: best of BENCH_REPS = 2 synchronized solves; sustained
+     plans/s: BENCH_PIPE_REPS = 4 solves through parallel.stream_map with
+     4 in flight, as bench.py measures it) and counted once; the default
+     flavour's sustained rate also at inflight 1 and 4 alternated over
+     DEPTH_ROUNDS = 2 rounds (1, 4 | 4, 1) of DEPTH_SOLVES = 4 solves
+     each, with each depth's spread and the host
      syncs of one solve: K4 exactly 3
      launches a solve in the
      default flavour (T = 50, single pass, coarse 2+1, final_trust), 7 in
@@ -137,7 +138,8 @@ result line:
      user runs): the synthetic arm and its gripper, one object a trial at
      full width (160x160, 32 grasps, 1,000 body points, the bench's
      planner flavour): a warm-up trial, then tabletop scene 10 (nearest
-     first, 5 objects) and shelf scene 10 (random order, 3 objects, two
+     first, its first CLOSED_LOOP_TABLETOP = 3 objects) and shelf scene 10
+     (random order, 3 objects, two
      fused views, the planning fields from the first on a 2.5 cm grid
      from a 1 cm dedup). Per trial the tiers that ran (goal-set plan,
      rescue, deep, exact) and exact launch counts: K1 = 2 field builds +
@@ -241,7 +243,26 @@ result line:
      time in turns, the gates, one step's device time, ops and busy
      share, and K4 on the stacked table (queued, against plain,
      index_select and its bound);
- 13. result: the nvidia-smi line, one JSON line of kernel records (with
+ 13. the SceneReplica drivers (grasptrajopt_tpu_torch.gto_planning,
+     .evaluate_plans, .ik_checking: the ports of examples/gto_planning.py,
+     evaluate_plans.py and ik_checking.py) through their main(argv) on the
+     port's fake PyBullet over a synth7 tree (testing.make_scenereplica_tree:
+     32 grasps an object, tabletop scene 10 and a shelf scene of 2 objects)
+     at full width: synth7 at 100 points a link with its gripper, the
+     env's 640x480 window, goal capacity 64, the planner's 50 two-pass
+     iterations and the IK screen's 8 seeds x 50; gto_planning on the
+     tabletop (both orderings) and the shelf, evaluate_plans on each result
+     file, ik_checking on the tabletop. The result files in the JAX schema
+     with at least 2 tabletop objects planned, every plan finite, within
+     the limits and starting at the executed qc; K1 exactly 3 launches an
+     object that reaches the pre-filter and 1 a replayed plan (1 an object
+     in ik_checking), K4 exactly 1 + 2 x 50 a plan, K2 / K3 none; K1
+     against plain at the first object's three launches, K4 against plain
+     at a final plan's body points. ms an object for checking, IK and
+     planning, grasps kept, IK found, rewards, the replay's verdicts, and
+     one plan profiled in the run (device time, ops, host syncs; busy over
+     its unprofiled twin's wall) are printed, not gated;
+ 14. result: the nvidia-smi line, one JSON line of kernel records (with
      each kernel's roofline bound and, for K4 in each mode, the library
      call's time; K2 / K3's times queued, K3 also at the occupancy
      builds; K4's launches are the bench solve's, a served solve's are
@@ -1320,8 +1341,9 @@ def phase_warm_start_report(bench):
           "within 5 degrees")
 
 
-DEPTH_ROUNDS = 3  # rounds of the bench solve's stream at inflight 1 and 4, the order alternating
-DEPTH_SOLVES = 6  # solves a depth a round
+DEPTH_ROUNDS = 2  # rounds of the bench solve's stream at inflight 1 and 4, the order alternating
+DEPTH_SOLVES = 4  # solves a depth a round
+BENCH_REPS, BENCH_PIPE_REPS = 2, 4  # each flavour's latency solves (the best reported) and pipelined solves
 
 
 def depth_rates(pb, bench):
@@ -1374,7 +1396,7 @@ def phase_bench(dev):
             k4 = phase_field_lookup_vs_plain(dev, bench)
             phase_warm_start_report(bench)
         torch.cuda.reset_peak_memory_stats(dev)
-        timed = pb.time_solves(bench, reps=3, pipe_reps=5)
+        timed = pb.time_solves(bench, reps=BENCH_REPS, pipe_reps=BENCH_PIPE_REPS)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         # no host sync inside a solve: each would drain the stream
         syncs = host_syncs(bench.step)
@@ -1399,7 +1421,7 @@ def phase_bench(dev):
               "in one solve (set_sync_debug_mode): none")
         print(f"[bench] {flavour}: latency {timed['latency_s'] * 1e3:.3f} ms (best of "
               f"{[round(t * 1e3, 3) for t in timed['latency_runs_s']]} ms), sustained "
-              f"{timed['plans_per_s']:.3f} plans/s over 5 solves through stream_map at inflight {timed['inflight']}; "
+              f"{timed['plans_per_s']:.3f} plans/s over {BENCH_PIPE_REPS} solves through stream_map at inflight {timed['inflight']}; "
               f"peak device memory {peak:.1f} MiB")
         print(f"[bench] {flavour}: gates {json.dumps(gates)} (reported, not gated)")
         if flavour == "long_horizon":
@@ -1710,13 +1732,10 @@ def check_escalation_tier(tier, name, trial, rec):
 def profile_trial(fn) -> dict:
     """Where one trial's time goes: the host wall time of `fn` (the trial
     run again), then torch.profiler's device time and device operations
-    over a second run of it (device activity only: tracing the host's
-    ~250k launches too costs minutes); busy = device time / unprofiled
-    wall."""
+    over a second run of it (device_profile: device activity only, the raw
+    events summed; key_averages over a trial's ~250k events took ~100 us
+    an event on the host); busy = device time / unprofiled wall."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1724,24 +1743,22 @@ def profile_trial(fn) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
+    prof = device_profile(fn)
     return {
         "seconds": time.perf_counter() - t1,
-        "wall_ms": 1e3 * wall_s, "device_ms": device_ms, "device_ops": sum(e.count for e in ops),
-        "busy": device_ms / (1e3 * wall_s),
-        "top": [[e.key[:70], e.count, round(e.self_device_time_total / 1e3, 3)] for e in top],
+        "wall_ms": 1e3 * wall_s, "device_ms": prof["device_ms"], "device_ops": prof["ops"],
+        "busy": prof["device_ms"] / (1e3 * wall_s), "top": prof["top"],
     }
+
+
+CLOSED_LOOP_TABLETOP = 3  # tabletop objects of the closed loop (3 of the scene's 5: the run's time limit)
 
 
 def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link: int = 100, size: int = 160):
     """The closed-loop harness (grasptrajopt_tpu_torch.synthetic_eval) on
     the synthetic arm and its gripper, one object a trial at full width:
-    a warm-up trial, tabletop scene 10 (nearest first, 5 objects) and shelf
+    a warm-up trial, tabletop scene 10 (nearest first, CLOSED_LOOP_TABLETOP
+    objects) and shelf
     scene 10 (random order, `shelf_objects` objects, 2 fused views, the
     planning fields from the first on a 2.5 cm grid). Per trial the tiers
     that ran and the exact launch counts they imply; every plan finite,
@@ -1792,7 +1809,8 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
     rec.install()
     results = {}
     try:
-        for st, ordering, n_obj in (("tabletop", "nearest_first", 5), ("shelf", "random", shelf_objects)):
+        for st, ordering, n_obj in (("tabletop", "nearest_first", CLOSED_LOOP_TABLETOP),
+                                    ("shelf", "random", shelf_objects)):
             path = os.path.join(out_dir, f"GTO_synthetic_synth7_{st}.json")
             first = len(rec.trials)
             results[st] = run(st, [10], n_obj, [ordering], path=path)
@@ -1878,8 +1896,8 @@ def phase_closed_loop(dev, shelf_objects: int = 3, out_dir=None, points_per_link
     order = list(results["tabletop"]["10"]["nearest_first"])
     prior = {"10": {"nearest_first": {n: results["tabletop"]["10"]["nearest_first"][n]
                                       for n in order if n != fail_name}}}
-    prof = profile_trial(lambda: run("tabletop", [10], 5, ["nearest_first"], prior=prior))
-    syncs = host_syncs(lambda: run("tabletop", [10], 5, ["nearest_first"], prior=prior))
+    prof = profile_trial(lambda: run("tabletop", [10], CLOSED_LOOP_TABLETOP, ["nearest_first"], prior=prior))
+    syncs = host_syncs(lambda: run("tabletop", [10], CLOSED_LOOP_TABLETOP, ["nearest_first"], prior=prior))
     print(f"[closed-loop] host syncs in trial {fail_name} (its plan, rescue and scoring; "
           f"set_sync_debug_mode): {sync_sites(syncs)}")
     print(f"[closed-loop] profile of trial {fail_name} (tabletop scene 10, its plan_object wall "
@@ -2611,13 +2629,10 @@ def phase_sharded(dev):
     gates, one step under torch.profiler (device time, ops, busy share,
     K4's device time against its bound), and K4 on the stacked table timed
     as the bench's record (2 coarse + 1 fine pass). Returns K4's record."""
-    import collections
     import tempfile
 
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from grasptrajopt_tpu_torch import bench as pb
     from grasptrajopt_tpu_torch import parallel
@@ -2699,16 +2714,8 @@ def phase_sharded(dev):
                   f"x); gates {json.dumps(gates)} (reported, not gated)")
 
             # one step's device time, device activity only (a host trace of ~70k launches is slow)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                bench.step()
-                torch.cuda.synchronize(dev)
-            device_ns, device_n = collections.Counter(), collections.Counter()
-            for e in prof.profiler.kineto_results.events():
-                if e.device_type() == DeviceType.CUDA:
-                    device_ns[e.name()] += e.duration_ns()
-                    device_n[e.name()] += 1
-            del prof
-            device_ms = sum(device_ns.values()) / 1e6
+            prof = device_profile(bench.step)
+            device_ns, device_n, device_ms = prof["ns"], prof["n"], prof["device_ms"]
             k4_names = [k for k in device_ns if "field_lookup_kernel" in k]
             k4_profiled_ms = sum(device_ns[k] for k in k4_names) / 1e6
             if sum(device_n[k] for k in k4_names) != 3:
@@ -2743,6 +2750,358 @@ def phase_sharded(dev):
             "bound_ms": rec["bound"], "bound_by": by, "library_ms": rec["library"]}
 
 
+# phase 13: the SceneReplica drivers over a synth7 tree at full width
+SCENEREPLICA_GRASPS = 32  # grasps an object in the tree (scenereplica_grasps: 8 turns x 4 heights)
+SCENEREPLICA_SCENE = 10
+
+
+class DriverRecorder:
+    """Per run of a SceneReplica driver's `main`: the grasp pre-filter's
+    calls (each an object that reached it) and keep masks, every
+    signed-distance query (cloud, query points, result; those of the first
+    object that reached the pre-filter kept) and each goal-set plan's call
+    (planner, arguments, plan, synchronized wall). It wraps, in this
+    script only, gto_planning's `filter_grasps_by_collision`,
+    `DepthPointCloud.get_sdf` and `GTOPlanner.plan_goalset`, keeping
+    references only (nothing is read to the host inside the driver's
+    timed windows); `restore` undoes it."""
+
+    def __init__(self):
+        self._saved = []
+        self.start()
+
+    def start(self, profile_twin=False):
+        """Opens a run. With `profile_twin`, the first plan whose start and
+        goals equal an earlier plan's of the run (its twin) runs under
+        torch.profiler (device activity) and host_syncs; `profiled` is
+        then (its index, its twin's index)."""
+        self.filters, self.sdf, self.first_sdf, self.plans = [], [], None, []
+        self.profile_twin, self.profile, self.profiled = profile_twin, None, None
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def install(self):
+        import torch
+
+        import numpy as np
+
+        from grasptrajopt_tpu_torch import gto_planning
+        from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud
+        from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
+
+        rec = self
+
+        def filter_grasps(orig):
+            def run(*args, **kwargs):
+                keep, ratios = orig(*args, **kwargs)
+                rec.filters.append(keep)
+                if rec.first_sdf is None:  # the first object: its two field builds and this query
+                    rec.first_sdf = list(rec.sdf)
+                rec.sdf = []
+                return keep, ratios
+            return run
+
+        def get_sdf(orig):
+            def run(cloud, query_points):
+                out = orig(cloud, query_points)
+                if rec.first_sdf is None:
+                    rec.sdf.append((cloud, query_points, out))
+                return out
+            return run
+
+        def twin_of(args):
+            """Index of the earlier plan of this run with the same start and goals."""
+            for i, r in enumerate(rec.plans):
+                if all(np.array_equal(np.asarray(r["args"][k]), np.asarray(args[k])) for k in (0, 1)):
+                    return i
+            return None
+
+        def plan_goalset(orig):
+            def run(planner, *args, **kwargs):
+                twin = twin_of(args) if rec.profile_twin and rec.profiled is None else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if twin is not None:
+                    res, syncs = {}, {}
+
+                    def go():
+                        res["out"] = orig(planner, *args, **kwargs)
+                    prof = device_profile(lambda: syncs.update(host_syncs(go)))
+                    out, rec.profile, rec.profiled = res["out"], (prof, syncs), (len(rec.plans), twin)
+                else:
+                    out = orig(planner, *args, **kwargs)
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                rec.plans.append({"planner": planner, "args": args, "kwargs": kwargs, "Q": out[0],
+                                  "wall_ms": wall_ms, "grid": planner.robot.grid})
+                return out
+            return run
+
+        self._patch(gto_planning, "filter_grasps_by_collision", filter_grasps)
+        self._patch(DepthPointCloud, "get_sdf", get_sdf)
+        self._patch(GTOPlanner, "plan_goalset", plan_goalset)
+
+    def restore(self):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+
+
+def device_profile(fn) -> dict:
+    """Device time (ms) and device operations of one call of `fn`, by
+    torch.profiler with device activity only, summing the raw events (a
+    host trace of a solve's launches, or key_averages over them, is
+    slow); the top device operations by time."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_ns, device_n = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device_ns[e.name()] += e.duration_ns()
+            device_n[e.name()] += 1
+    return {"device_ms": sum(device_ns.values()) / 1e6, "ops": sum(device_n.values()), "n": device_n,
+            "ns": device_ns, "top": [[k[:60], device_n[k], round(v / 1e6, 3)] for k, v in device_ns.most_common(6)]}
+
+
+def check_result_file(name, path, scene_type, ndof) -> dict:
+    """A driver's result file in the JAX schema (tests/test_drivers.py):
+    the scene's orderings, each object's record with at least reward,
+    plan, checking_time, ik_time and planning_time, each plan (ndof, T);
+    it round-trips through aggregate_results. Returns the loaded file."""
+    import numpy as np
+
+    from grasptrajopt_tpu_torch.gto_planning import SCENE_KNOBS
+    from grasptrajopt_tpu_torch.utils.results import aggregate_results, load_results
+
+    results = load_results(path)
+    if set(results) != {str(SCENEREPLICA_SCENE)}:
+        raise AssertionError(f"{name}: scenes {sorted(results)}")
+    orderings = results[str(SCENEREPLICA_SCENE)]
+    if set(orderings) != set(SCENE_KNOBS[scene_type]["orderings"]):
+        raise AssertionError(f"{name}: orderings {sorted(orderings)}")
+    trials = 0
+    for objects in orderings.values():
+        for obj, r in objects.items():
+            missing = {"reward", "plan", "checking_time", "ik_time", "planning_time"} - set(r)
+            if missing:
+                raise AssertionError(f"{name} {obj}: record lacks {sorted(missing)}")
+            if r["plan"] is not None and np.asarray(r["plan"]).shape[0] != ndof:
+                raise AssertionError(f"{name} {obj}: plan of shape {np.asarray(r['plan']).shape}")
+            trials += 1
+    if aggregate_results(load_results(path))["trials"] != trials:
+        raise AssertionError(f"{name}: aggregate_results counts other trials than the file's {trials}")
+    return results
+
+
+def phase_scenereplica(dev):
+    """The SceneReplica drivers (gto_planning, evaluate_plans, ik_checking:
+    the port of examples/gto_planning.py and its replay and IK checker)
+    through their `main(argv)` on the port's fake PyBullet, over a synth7
+    tree (testing.make_scenereplica_tree in a temporary directory) at full
+    width: synth7 at 100 points a link with its gripper, SCENEREPLICA_GRASPS
+    grasps an object, the env's 640x480 window, goal capacity 64, the
+    planner's and the IK screen's defaults (50 two-pass LM iterations; 8
+    seeds x 50). Runs gto_planning on tabletop scene 10 (both orderings,
+    2 objects) and on its shelf scene (2 objects, random order),
+    evaluate_plans on each result file, ik_checking on scene 10. Checks:
+    the result files in the JAX schema with at least 2 objects planned on
+    the tabletop; every plan finite, within the limits and starting (its
+    first two steps) at the qc the driver executed; K1 exactly 3 launches
+    for each object that reaches the pre-filter and 1 for each replayed
+    plan (ik_checking: 1 an object), K4 exactly the planner's
+    linearisations (1 + 2 x 50 a plan), K2 / K3 none; K1 against plain at
+    the first object's three launches, K4 against plain at the last
+    tabletop plan's final body points; K1 timed at those three launches.
+    Reports ms an object for checking, IK and planning, grasps kept and IK
+    found (the goals each plan got, 0 where the driver planned nothing
+    after its IK screen), rewards and the replay's collision verdicts, and
+    the device time, ops and host syncs of the first tabletop plan whose
+    start and goals repeat an earlier plan's, profiled in the run, with
+    its busy share over the wall of that unprofiled twin. The simulator's
+    waits are skipped: the fake has no physics to settle. Returns the
+    phase's seconds."""
+    import importlib
+    import os
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from grasptrajopt_tpu_torch.envs import fake_pybullet
+
+    fake_pybullet.install(force=True)
+    from grasptrajopt_tpu_torch.envs import pybullet_api, scene_replica
+
+    if pybullet_api.p is not fake_pybullet:
+        importlib.reload(pybullet_api)
+        importlib.reload(scene_replica)
+    from grasptrajopt_tpu_torch import evaluate_plans, gto_planning, ik_checking
+    from grasptrajopt_tpu_torch.gto_planning import SCENE_KNOBS
+    from grasptrajopt_tpu_torch.testing import make_scenereplica_tree
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="scenereplica_")
+    tree, outdir = os.path.join(tmp.name, "tree"), os.path.join(tmp.name, "results")
+    make_scenereplica_tree(tree, SCENEREPLICA_SCENE, SCENEREPLICA_GRASPS)
+    common = ["-r", "synth7", "--assets_dir", tree, "-s", str(SCENEREPLICA_SCENE), "--device", dev.type]
+    rec = DriverRecorder()
+    rec.install()
+    # the simulator's waits (setup_scene's 2 s, the driver's 1 s an object)
+    # let a physics engine settle; the fake has none to settle
+    no_wait = types.SimpleNamespace(sleep=lambda s: None, time=time.time)
+    waits = [(m, m.time) for m in (scene_replica, gto_planning)]
+    for m, _ in waits:
+        m.time = no_wait
+    files, plans, first, profiled, profiled_at = {}, [], None, None, None
+    try:
+        for st in ("tabletop", "shelf"):
+            # on the tabletop, the first plan that repeats an earlier one's
+            # start and goals (one object, planned in both orderings) runs
+            # under torch.profiler
+            rec.start(profile_twin=st == "tabletop")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            files[st] = gto_planning.main(common + ["-t", st, "--outdir", outdir, "--goal_capacity", "64"])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            k4_want = sum(k4_per_solve(r["planner"]) for r in rec.plans)
+            want = {"K1": 3 * len(rec.filters), "K2": 0, "K3": 0, "K4": k4_want}
+            if counts != want:
+                raise AssertionError(f"gto_planning {st}: launches {counts}, expected {want} "
+                                     f"({len(rec.filters)} objects filtered, {len(rec.plans)} plans)")
+            robot = rec.plans[0]["planner"].robot if rec.plans else None
+            results = check_result_file(f"gto_planning {st}", files[st], st, 9)
+            for i, r in enumerate(rec.plans):
+                qc = torch.as_tensor(np.asarray(r["args"][0]), dtype=r["planner"].robot.dtype, device=dev)
+                check_plans(f"gto_planning {st} plan {i}", torch.as_tensor(r["Q"], device=dev).T, qc,
+                            r["planner"].robot)
+            if first is None:
+                first = [(cloud, cloud._queries(q), out) for cloud, q, out in rec.first_sdf]
+            if st == "tabletop":
+                if rec.profiled is None:
+                    raise AssertionError(f"gto_planning tabletop: none of its {len(rec.plans)} plans repeats an "
+                                         "earlier plan's start and goals, so none was profiled beside a twin")
+                profiled_at = i, j = rec.profiled
+                profiled = (rec.plans[i], rec.profile, rec.plans[j])
+            plans += [dict(r, scene_type=st) for r in rec.plans]
+            recs = [(o, n, r) for ords in results.values() for o, objs in ords.items() for n, r in objs.items()]
+            planned = [r for _, _, r in recs if r["plan"] is not None]
+            if len(planned) != len(rec.plans):
+                raise AssertionError(f"gto_planning {st}: {len(planned)} plans in the file, {len(rec.plans)} made")
+            if st == "tabletop" and len(planned) < 2:
+                raise AssertionError(f"gto_planning tabletop: {len(planned)} objects planned")
+            # IK found, from what the driver did: the goals it handed each
+            # plan (in the file's order), 0 where it screened and planned nothing
+            goals = iter(len(r["args"][1]) for r in rec.plans)
+            found = [next(goals) if r["plan"] is not None else 0 for _, _, r in recs if r["ik_time"] is not None]
+
+            # the profiled plan's planning time carries the profiler's cost:
+            # it is left out of the means and printed on its own below
+            skip = planned[rec.profiled[0]] if rec.profiled is not None else None
+
+            def ms(key):
+                vals = [r[key] for _, _, r in recs
+                        if r[key] is not None and not (key == "planning_time" and r is skip)]
+                return f"{1e3 * statistics.mean(vals):.1f}" if vals else "-"
+            print(f"[scenereplica] gto_planning {st} scene {SCENEREPLICA_SCENE}: {len(recs)} trials "
+                  f"({', '.join(f'{o} {n}' for o, n, _ in recs)}), {len(planned)} planned; grasps kept "
+                  f"{[int(k.sum()) for k in rec.filters]} of {SCENEREPLICA_GRASPS}, IK found {found}; rewards "
+                  f"{[r['reward'] for _, _, r in recs]} (the fake has no grasp rule: reported, not gated); "
+                  f"ms an object: checking {ms('checking_time')}, IK {ms('ik_time')}, planning "
+                  f"{ms('planning_time')} (each {[round(1e3 * r['planning_time'], 1) for _, _, r in recs if r['planning_time']]}"
+                  f"{'' if skip is None else f'; the profiled plan, index {rec.profiled[0]}, left out of the mean'}); "
+                  f"launches {counts} (as expected); plans finite, within the limits, starting at the executed "
+                  f"qc; result file {files[st]} in the JAX schema; run wall {wall:.1f} s")
+
+        for st in ("tabletop", "shelf"):
+            loaded = check_result_file(f"evaluate_plans {st}", files[st], st, 9)
+            replayed = sum(r["plan"] is not None for ords in loaded.values() for objs in ords.values()
+                           for r in objs.values())
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            agg = evaluate_plans.main(common + ["-t", st, "-f", files[st]])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = {"K1": replayed, "K2": 0, "K3": 0, "K4": 0}
+            if counts != want:
+                raise AssertionError(f"evaluate_plans {st}: launches {counts}, expected {want}")
+            print(f"[scenereplica] evaluate_plans {st}: {replayed} plans replayed, collisions "
+                  f"{agg['total_collision']} {json.dumps(agg['collision_by_object'])}, success {agg['success']} "
+                  f"of {agg['trials']}; launches {counts} (as expected); wall {time.perf_counter() - t0:.1f} s")
+
+        rec.start()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        screened = ik_checking.main(common + ["-t", "tabletop"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {"K1": len(screened), "K2": 0, "K3": 0, "K4": 0}
+        if counts != want:
+            raise AssertionError(f"ik_checking: launches {counts}, expected {want}")
+        print(f"[scenereplica] ik_checking tabletop: found "
+              f"{ {o: f'{int(f.sum())}/{f.size} in {1e3 * s:.1f} ms' for o, (f, s) in screened.items()} }; "
+              f"launches {counts} (as expected); wall {time.perf_counter() - t0:.1f} s")
+    finally:
+        rec.restore()
+        for m, t in waits:
+            m.time = t
+
+    # K1 against plain at the first object's launches (two field builds, the pre-filter)
+    checked = check_k1_records(first)
+    print("[scenereplica] K1 vs plain at the first object's launches (M queries x N cloud points, max |d2 "
+          "err|): " + ", ".join(f"{m} x {n}: {e:.3e}" for m, n, e in checked) + f" (tolerance {FIELD_TOL:g}); "
+          "fields and inside verdicts as plain's")
+    for cloud, q, _ in first:
+        km, qm, pm, bm, by, (tile_m, S) = time_k1(cloud, q)
+        print(f"[scenereplica] K1 B=1 M={q.shape[0]} N={cloud.points_padded.shape[0]} (tile_m {tile_m}, S {S}): "
+              f"median kernel {km:.4f} ms ({bm / km:.1%} of the bound), queued {qm:.4f} ms ({bm / qm:.1%}), "
+              f"plain {pm:.4f} ms, bound {bm:.4f} ms ({by})")
+    del first
+    # K4 against plain at the last tabletop plan's final body points
+    last = [r for r in plans if r["scene_type"] == "tabletop"][-1]
+    planner, (qc, RTs, sdf_all, sdf_obs, base) = last["planner"], last["args"][:5]
+    planner.robot.grid = last["grid"]  # the grid of that plan's object
+    table = planner.field_table(planner._tensor(sdf_all), planner._tensor(sdf_obs))
+    Q_full = torch.as_tensor(last["Q"], device=dev).T[None].contiguous()
+    err = check_plan_fields("scenereplica plan", planner, table, Q_full, planner._tensor(base)[None])
+    print(f"[scenereplica] K4 vs plain at the last tabletop plan's final body points "
+          f"({tuple(Q_full.shape)} on its {planner.robot.grid.size}-cell grid): max |err| {err:.3e} "
+          f"(tolerance {LOOKUP_TOL:g} x (1 + |plain|))")
+
+    # the profiled plan beside its unprofiled twin (the same start and goals,
+    # planned earlier in the run)
+    (p_rec, (prof, syncs), twin) = profiled
+    (p_i, twin_i) = profiled_at
+    k4_n = sum(n for k, n in prof["n"].items() if "field_lookup_kernel" in k)
+    if k4_n != k4_per_solve(p_rec["planner"]):
+        raise AssertionError(f"scenereplica: the profiled plan ran K4 {k4_n} times")
+    print(f"[scenereplica] one plan under torch.profiler (the tabletop's plan {p_i}, twin of its plan {twin_i}: "
+          f"{len(p_rec['args'][1])} goals, "
+          f"capacity {p_rec['kwargs']['goal_capacity']}): device {prof['device_ms']:.1f} ms in {prof['ops']} device ops "
+          f"(device activity; K4 {k4_n} launches), profiled wall {p_rec['wall_ms']:.1f} ms; its unprofiled twin "
+          f"{twin['wall_ms']:.1f} ms (plans bit-identical: {np.array_equal(twin['Q'], p_rec['Q'])}), busy "
+          f"{prof['device_ms'] / twin['wall_ms']:.1%}; top device ops {json.dumps(prof['top'])}; host syncs "
+          f"{sync_sites(syncs)}")
+    del profiled, twin, p_rec
+    del plans, last, table
+    tmp.cleanup()
+    seconds = time.perf_counter() - t_phase
+    print(f"[scenereplica] phase {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -2763,27 +3122,45 @@ def main() -> int:
     print(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}; host {host_cpu()}")
 
+    def lap(phase):
+        """The run's clock after each phase: where the time limit goes."""
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase_build()
+    lap("build")
     # host_syncs must see a sync where there is one
     if not host_syncs(lambda: torch.ones(1, device=dev).item()):
         raise AssertionError("host_syncs found no sync in a .item() of a CUDA tensor")
     grid_pts = make_synthetic_gto_robot(device=dev, points_per_link=1).grid.grid_points(np.float32)
     max_err, k_ms, p_ms, b_ms, b_by = phase_kernel_vs_plain(grid_pts, dev)
+    lap("K1 vs plain")
     near = phase_nearest_vs_plain(grid_pts, dev)
+    lap("K2 / K3 vs plain")
     launches, slice_k4, path, obs, out = phase_slice(dev)
+    lap("slice")
     ik_k4, ik_err = phase_ik_collision(path, obs, out, dev)
+    lap("IK collision screen")
     k2_launches, k3_launches = phase_pergoal(path, obs, out, dev)
+    lap("per-goal tiers")
     del path, obs, out
     k4, k4_launches = phase_bench(dev)
+    lap("bench solve")
     phase_closed_loop(dev)
+    lap("closed loop")
     occ = phase_mobile(dev)
+    lap("mobile")
     phase_builder(dev)
+    lap("builder")
     serving_k4 = phase_serving(dev)
+    lap("serving")
     sharded = phase_sharded(dev)
+    lap("sharded")
+    scenereplica_s = phase_scenereplica(dev)
+    lap("SceneReplica drivers")
     print(f"[done] K4 launches on its paths: bench solve {k4_launches['default']} (float32) and "
           f"{k4_launches['bf16']} (bf16), the e2e slice {slice_k4}, the IK collision screen {ik_k4} "
           f"(max |err| there {ik_err:.3e}), a served solve {serving_k4}, a sharded step {sharded['launches']}")
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(f"[done] the SceneReplica drivers {scenereplica_s:.1f} s; {time.perf_counter() - t_start:.1f} s")
 
     def record(name, source, replaces, launches, err, ms, plain_ms, bound, bound_by, library_ms):
         return {

@@ -151,13 +151,15 @@ class GTOPlanner:
     def setup_optimization(
         self, goal_size: int = 1, use_standoff: bool = False, axis_standoff: str = "x"
     ) -> PlannerSolvers:
-        """Build (and cache) the solver for one goal capacity."""
-        key = (goal_size, use_standoff, axis_standoff)
+        """Build (and cache) the solver for one goal capacity on the robot's
+        current grid (a driver that gives each object its own grid gets a
+        solver for each)."""
+        g = self.robot.grid
+        key = (goal_size, use_standoff, axis_standoff, g)
         if key in self._solvers:
             return self._solvers[key]
 
         robot = self.robot
-        g = robot.grid
         dtype, dev = robot.dtype, robot.device
         T = self.T
         t_standoff = T + self.standoff_offset

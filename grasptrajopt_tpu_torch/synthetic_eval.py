@@ -32,14 +32,8 @@ import torch
 from grasptrajopt_tpu_torch.envs.synthetic import SyntheticSceneEnv
 from grasptrajopt_tpu_torch.fields.depth_point_cloud import DepthPointCloud, FusedDepthPointCloud
 from grasptrajopt_tpu_torch.planning import evaluate
-from grasptrajopt_tpu_torch.planning.gto_models import GTORobotModel
 from grasptrajopt_tpu_torch.planning.pipeline import GraspPipeline
-from grasptrajopt_tpu_torch.planning.utils import get_data_dir, load_robot_config
-from grasptrajopt_tpu_torch.testing import (
-    SYNTH_EVAL_CONFIG,
-    make_synthetic_gripper,
-    make_synthetic_gto_robot,
-)
+from grasptrajopt_tpu_torch.utils.cli import build_models, resolve_device
 from grasptrajopt_tpu_torch.utils.results import aggregate_results
 
 # scene-type knobs, as in the JAX harness: the shelf's deep standoff with
@@ -95,36 +89,6 @@ def make_args(argv=None):
     p.add_argument("--views", type=int, default=None,
                    help="number of fused camera views (default: scene knob)")
     return p.parse_args(argv)
-
-
-def build_models(robot_name: str, data_dir: str = None, grid_resolution: float = 0.05,
-                 dtype=None, device="cuda"):
-    """(robot, gripper, cfg): the synthetic arm and its gripper, or a robot
-    and its gripper from the data tree's URDFs and config. dtype None:
-    float32 on the card (K4 takes float32 only), float64 on the CPU."""
-    if dtype is None:
-        dtype = torch.float32 if torch.device(device).type == "cuda" else torch.float64
-    if robot_name == "synth7":
-        robot = make_synthetic_gto_robot(device, dtype, grid_resolution=grid_resolution)
-        return robot, make_synthetic_gripper(device, dtype), dict(SYNTH_EVAL_CONFIG)
-    data_dir = data_dir or get_data_dir()
-    cfg = load_robot_config(robot_name, data_dir)
-    model_dir = os.path.join(data_dir, "robots", cfg["robot_name"])
-
-    def urdf(key):
-        with open(os.path.join(data_dir, cfg[key].split("data/", 1)[-1])) as f:
-            return f.read()
-
-    robot = GTORobotModel.from_urdf_string(
-        urdf("urdf_robot_path"), param_joints=cfg["param_joints"],
-        collision_link_names=cfg["collision_link_names"], grid_resolution=grid_resolution,
-        model_dir=model_dir, device=device, dtype=dtype,
-    )
-    robot.setup_workspace_field(arm_len=cfg["arm_len"], arm_height=cfg["arm_height"])
-    gripper = GTORobotModel.from_urdf_string(
-        urdf("urdf_gripper_path"), model_dir=model_dir, device=device, dtype=dtype
-    )
-    return robot, gripper, cfg
 
 
 def evaluate_scenes(
@@ -297,13 +261,7 @@ def summary(results: dict) -> dict:
 
 def main(argv=None):
     args = make_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda, but torch sees no CUDA device (pass --device cpu)")
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        # the solver is specified at full float32: no TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = resolve_device(args.device)
     knobs = SCENE_KNOBS[args.scene_type]
     grid_resolution = args.grid_resolution if args.grid_resolution is not None else knobs["grid_resolution"]
     robot, gripper, cfg = build_models(

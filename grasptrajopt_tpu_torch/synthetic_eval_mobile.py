@@ -54,7 +54,8 @@ from grasptrajopt_tpu_torch.planning import evaluate
 from grasptrajopt_tpu_torch.planning.base_planner import BasePlanner
 from grasptrajopt_tpu_torch.planning.pipeline import GraspPipeline
 from grasptrajopt_tpu_torch.planning.utils import default_pose
-from grasptrajopt_tpu_torch.synthetic_eval import SCENE_KNOBS, build_models, summary
+from grasptrajopt_tpu_torch.synthetic_eval import SCENE_KNOBS, summary
+from grasptrajopt_tpu_torch.utils.cli import build_models, resolve_device
 
 
 def make_args(argv=None):
@@ -285,13 +286,7 @@ def evaluate_scenes(
 
 def main(argv=None):
     args = make_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda, but torch sees no CUDA device (pass --device cpu)")
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        # the solver is specified at full float32: no TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = resolve_device(args.device)
     robot, gripper, cfg = build_models(args.robot, args.data_dir, device=device,
                                        grid_resolution=SCENE_KNOBS[args.scene_type]["grid_resolution"])
     scene_ids = [int(s) for s in args.scene_ids.split(",")]

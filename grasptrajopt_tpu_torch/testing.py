@@ -9,11 +9,20 @@ DSL (`make_dsl_trajectory_problem`), and the arm's
 gripper as a model of its own (`SYNTH_GRIPPER_URDF`: the hand and both
 fingers, rooted at the hand, as the pipeline's grasp pre-filter needs it)
 and `SYNTH_EVAL_CONFIG`, the robot config the closed-loop harness reads.
+
+`make_scenereplica_tree` writes a SceneReplica-shaped data tree that the
+SceneReplica drivers (`gto_planning`, `evaluate_plans`, `ik_checking`,
+`save_videos`, the viewers) run over with `-r synth7`: box "YCB"
+objects, analytic grasps, a tabletop and a shelf scene's metadata, the
+furniture `SceneReplicaEnv` loads, and synth7's URDFs for the simulator
+(`SYNTH_SIM_URDF`) and its gripper.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import json
+import os
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -147,6 +156,50 @@ SYNTH_EVAL_CONFIG = {
     "gripper_open_offsets": (0.04, 0.04),
     "default_pose": SYNTH_DEFAULT_POSE.tolist(),
     "depth_threshold": 1.5,
+}
+
+
+# synth7 for the simulator: the arm's chain and links unchanged, plus two
+# fixed links without geometry, so that the Panda wrapper's indices
+# (envs/pybullet_api.py: ee_index 7, camera_link_index 10, finger_index
+# [7, 8]) fit in pybullet's depth-first joint order: `ee_link` on the hand
+# before the fingers (joint 7), `camera_link` on the base after the arm's
+# subtree (joint 10). The camera sits 1 m above the base and 0.2 m in front
+# of it, turned to look along +x and 1 rad down (the Panda wrapper views
+# along the link's -y with its +z up): it sees the table and the shelf's
+# lowest board, and not the arm at its retract pose, behind the base.
+SYNTH_SIM_URDF = SYNTH_ARM_URDF.replace(
+    '  <joint name="finger_joint_l" type="prismatic">',
+    """  <link name="ee_link"/>
+  <joint name="ee_joint" type="fixed">
+    <parent link="hand"/><child link="ee_link"/><origin xyz="0 0 0" rpy="0 0 0"/>
+  </joint>
+  <joint name="finger_joint_l" type="prismatic">""",
+    1,
+).replace(
+    "</robot>",
+    """  <link name="camera_link"/>
+  <joint name="camera_joint" type="fixed">
+    <parent link="base_link"/><child link="camera_link"/>
+    <origin xyz="0.2 0 1.0" rpy="1.0 0 1.5707963267948966"/>
+  </joint>
+</robot>""",
+)
+
+# the rest of the robot config the SceneReplica drivers read (the keys of
+# a data tree's configs/<robot>.yaml), for synth7 in a tree written by
+# make_scenereplica_tree; the Panda conventions (robot_name "panda": its
+# wrapper, base position and grasp files)
+SYNTH_SCENEREPLICA_CONFIG = {
+    **SYNTH_EVAL_CONFIG,
+    "urdf_robot_path": "data/robots/synth7/synth7.urdf",
+    "urdf_gripper_path": "data/robots/synth7/synth7_gripper.urdf",
+    "param_joints": list(SYNTH_PARAM_JOINTS),
+    "collision_link_names": list(SYNTH_COLLISION_LINKS),
+    "retract_distance": 0.3,
+    "finger_index": [7, 8],
+    "arm_len": 1.1,
+    "arm_height": 0.2,
 }
 
 
@@ -300,3 +353,153 @@ def make_dsl_trajectory_problem(
         robot.state_parameter_name(1): np.zeros((robot.num_param_joints, T - 1)),
     }
     return DSLTrajectoryProblem(opt, lo, hi, seed, params, dt, t_standoff)
+
+
+# -- a SceneReplica-shaped data tree ------------------------------------------
+
+# the tabletop scene's two objects (meta-<scene>.mat), as the JAX package's
+# driver tests place them; the shelf scene's two lie on 6 cm risers on the
+# shelf's lowest board with their box z axis toward the robot (rotated -90
+# degrees about y), so that the top-down grasps approach horizontally and
+# the hand clears the board
+TABLETOP_OBJECTS = ("009_gelatin_box", "010_potted_meat_can")
+SHELF_OBJECTS = ("004_sugar_box", "005_tomato_soup_can")
+GRASP_TURNS = 8  # turns about the approach axis in a grasp set of more than 2
+GRASP_HEIGHTS = (0.10, 0.08, 0.12, 0.14)  # panda-convention hand heights above the object's center
+FETCH_GRASP_HEIGHTS = (0.30, 0.28, 0.32, 0.34)
+
+
+def write_box_urdf(path, sx, sy, sz, mass=0.05):
+    """A one-link box body (tests/fake_dataset.py's file, byte for byte)."""
+    with open(path, "w") as f:
+        f.write(
+            f"""<robot name="box">
+  <link name="base">
+    <visual><geometry><box size="{sx} {sy} {sz}"/></geometry></visual>
+    <collision><geometry><box size="{sx} {sy} {sz}"/></geometry></collision>
+    <inertial><mass value="{mass}"/><inertia ixx="1e-4" ixy="0" ixz="0" iyy="1e-4" iyz="0" izz="1e-4"/></inertial>
+  </link>
+</robot>
+"""
+        )
+
+
+def write_boxes_urdf(path, name: str, boxes) -> None:
+    """A static one-link body of several boxes: `boxes` is [((sx, sy, sz),
+    (x, y, z))], each box's size and its center in the body frame."""
+    parts = "".join(
+        f'    <visual><origin xyz="{x} {y} {z}" rpy="0 0 0"/><geometry><box size="{a} {b} {c}"/></geometry></visual>\n'
+        f'    <collision><origin xyz="{x} {y} {z}" rpy="0 0 0"/><geometry><box size="{a} {b} {c}"/></geometry></collision>\n'
+        for (a, b, c), (x, y, z) in boxes
+    )
+    with open(path, "w") as f:
+        f.write(f'<robot name="{name}">\n  <link name="base">\n{parts}  </link>\n</robot>\n')
+
+
+def top_down_grasp(height: float = 0.10) -> np.ndarray:
+    """Object-frame grasp pose: gripper approach (+z of the hand frame)
+    pointing straight down, hand origin `height` above the object center."""
+    g = np.eye(4)
+    g[:3, :3] = np.diag([1.0, -1.0, -1.0])  # rotX(pi): z down
+    g[2, 3] = height
+    return g
+
+
+def top_down_grasp_fetch(height: float = 0.30) -> np.ndarray:
+    """Fetch wrist_roll-frame grasp: approach axis +x, pointed straight
+    down, wrist `height` above the object center."""
+    g = np.eye(4)
+    g[:3, :3] = np.array([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]])
+    g[2, 3] = height
+    return g
+
+
+def scenereplica_grasps(n: int, fetch: bool = False) -> np.ndarray:
+    """(n, 4, 4) object-frame grasps: for n <= 2 the JAX package's mini
+    dataset's (copies of the one top-down grasp); above, the top-down
+    grasp turned about its approach axis (hand z, fetch's x) in
+    GRASP_TURNS steps, each turn at the next of the heights."""
+    from grasptrajopt_tpu_torch.envs.camera import rotX, rotZ
+
+    make, heights, turn = (top_down_grasp_fetch, FETCH_GRASP_HEIGHTS, rotX) if fetch else (
+        top_down_grasp, GRASP_HEIGHTS, rotZ)
+    if n <= 2:
+        return np.stack([make()] * n)
+    out = []
+    for i in range(n):
+        g = make(heights[(i // GRASP_TURNS) % len(heights)])
+        g[:3, :3] = g[:3, :3] @ turn(2.0 * np.pi * (i % GRASP_TURNS) / GRASP_TURNS)[:3, :3]
+        out.append(g)
+    return np.stack(out)
+
+
+def make_scenereplica_tree(root: str, scene_id: int = 10, grasps_per_object: int = 2) -> List[str]:
+    """Populate `root` with a SceneReplica-shaped tree: 16 box YCB objects,
+    panda and fetch grasp files (`scenereplica_grasps`), a tabletop
+    scene's metadata (final_scenes) and a shelf scene's (shelf_scenes, so
+    that SceneReplicaEnv reads it and does not generate one), the floor,
+    cafe_table and shelf URDFs, and synth7's simulator and gripper URDFs
+    under robots/synth7. With grasps_per_object=2 the files that the JAX
+    package's tests/fake_dataset.make_mini_dataset writes are identical.
+    Returns the tabletop scene's object names. Needs a `pybullet` module
+    (the real engine or envs.fake_pybullet installed), as the env's
+    object list comes with it."""
+    import scipy.io
+
+    from grasptrajopt_tpu_torch.envs.fake_pybullet import _mat_to_quat_xyzw
+    from grasptrajopt_tpu_torch.envs.scene_replica import YCB_OBJECT_NAMES
+
+    panda = scenereplica_grasps(grasps_per_object)
+    fetch = [
+        list(g[:3, 3]) + list(_mat_to_quat_xyzw(g[:3, :3]))  # [x y z qx qy qz qw]
+        for g in scenereplica_grasps(grasps_per_object, fetch=True)
+    ]
+    for sub in ("grasp_data/panda_simulated", "grasp_data/refined_grasps", "final_scenes/metadata",
+                "shelf_scenes/metadata", "robots/synth7"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for name in YCB_OBJECT_NAMES:
+        obj_dir = os.path.join(root, "objects", name)
+        os.makedirs(obj_dir, exist_ok=True)
+        write_box_urdf(os.path.join(obj_dir, "model_normalized.urdf"), 0.06, 0.06, 0.12)
+        np.save(os.path.join(root, "grasp_data", "panda_simulated", f"{name}.npy"),
+                np.array({"transforms": panda}, dtype=object))
+        with open(os.path.join(root, "grasp_data", "refined_grasps", f"fetch_gripper-{name}.json"), "w") as f:
+            json.dump({"grasps": [{"pose": pose} for pose in fetch]}, f)
+
+    names = list(TABLETOP_OBJECTS)
+    poses = np.zeros((2, 7))
+    poses[0] = [0.7, -0.15, 0.82, 1, 0, 0, 0]  # wxyz identity
+    poses[1] = [0.7, 0.15, 0.82, 1, 0, 0, 0]
+    meta = {"object_names": names, "nearest_first": [",".join(names)], "random": [",".join(reversed(names))],
+            "poses": poses}
+    scipy.io.savemat(os.path.join(root, "final_scenes", "metadata", "meta-%06d.mat" % scene_id), meta)
+
+    shelf = list(SHELF_OBJECTS)
+    lying = [0.7071067811865476, 0.0, -0.7071067811865476, 0.0]  # wxyz, -90 degrees about y
+    shelf_poses = np.array([[0.8, -0.15, 1.03] + lying, [0.8, 0.15, 1.03] + lying])
+    scipy.io.savemat(os.path.join(root, "shelf_scenes", "metadata", "meta-%06d.mat" % scene_id), {
+        "object_names": shelf, "nearest_first": [",".join(shelf)], "random": [",".join(reversed(shelf))],
+        "poses": shelf_poses,
+    })
+
+    # furniture where SceneReplicaEnv.reset loads it: the floor at the
+    # origin; the cafe table at (0.8, 0, 0), its top at z = 0.78 (where the
+    # tabletop objects stand); the shelf at (0.9, 0, 0.95) turned 180
+    # degrees about z (its open side, local +x, toward the robot), boards
+    # at local z = 0, 0.4 and 0.8 (the lowest one's top at 0.96) and a riser
+    # under each shelf object (tops at 1.02)
+    for sub in ("floor", "cafe_table", "shelf"):
+        os.makedirs(os.path.join(root, "objects", sub), exist_ok=True)
+    write_boxes_urdf(os.path.join(root, "objects", "floor", "model_normalized.urdf"), "floor",
+                     [((4.0, 4.0, 0.02), (0.0, 0.0, -0.01))])
+    write_boxes_urdf(os.path.join(root, "objects", "cafe_table", "cafe_table.urdf"), "cafe_table",
+                     [((0.8, 1.2, 0.04), (0.0, 0.0, 0.76)), ((0.1, 0.1, 0.74), (0.0, 0.0, 0.37))])
+    boards = [((0.5, 0.84, 0.02), (0.0, 0.0, z)) for z in (0.0, 0.4, 0.8)]
+    walls = [((0.5, 0.02, 1.8), (0.0, y, -0.05)) for y in (-0.43, 0.43)] + [((0.02, 0.88, 1.8), (-0.26, 0.0, -0.05))]
+    risers = [((0.1, 0.1, 0.06), (0.1, y, 0.04)) for y in (-0.15, 0.15)]
+    write_boxes_urdf(os.path.join(root, "objects", "shelf", "shelf.urdf"), "shelf", boards + walls + risers)
+    with open(os.path.join(root, "robots", "synth7", "synth7.urdf"), "w") as f:
+        f.write(SYNTH_SIM_URDF)
+    with open(os.path.join(root, "robots", "synth7", "synth7_gripper.urdf"), "w") as f:
+        f.write(SYNTH_GRIPPER_URDF)
+    return names

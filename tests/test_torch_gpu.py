@@ -874,3 +874,62 @@ def test_sharded_step_at_a_world_of_one_is_the_unsharded_solve(cuda, tmp_path, m
         dist.destroy_process_group()
     assert torch.equal(Q, Q_ref) and torch.equal(cost, cost_ref)
     assert mean_cost == pytest.approx(float(cost_ref.mean()), rel=1e-6)
+
+
+def test_scenereplica_driver_on_the_card(cuda, tmp_path, monkeypatch):
+    """The port's gto_planning and evaluate_plans on the card at small
+    width over a synth7 tree (4 grasps an object, synth7 at 10 points a
+    link, a 96x72 window, 3 two-pass planner iterations, 10 IK
+    iterations, the simulator's waits skipped) on the port's fake
+    PyBullet: the JAX result schema, both objects planned in both
+    orderings, K1 3 launches an object and K4 7 a plan, then 1 K1 launch
+    a replayed plan."""
+    import importlib
+    import json
+    import sys
+    import time
+    import types
+
+    from grasptrajopt_tpu_torch import evaluate_plans, gto_planning
+    from grasptrajopt_tpu_torch import testing as port_testing
+    from grasptrajopt_tpu_torch.envs import fake_pybullet
+    from grasptrajopt_tpu_torch.ops import interp, nn
+    from grasptrajopt_tpu_torch.planning.gto_planner import GTOPlanner
+    from grasptrajopt_tpu_torch.planning.ik_solver import IKSolver
+    from grasptrajopt_tpu_torch.utils import cli
+
+    monkeypatch.setitem(sys.modules, "pybullet", sys.modules.get("pybullet"))
+    assert fake_pybullet.install(force=True)
+    scene_replica = None
+    for name in ("pybullet_api", "scene_replica"):
+        scene_replica = importlib.reload(importlib.import_module(f"grasptrajopt_tpu_torch.envs.{name}"))
+    mk, mg = port_testing.make_synthetic_gto_robot, port_testing.make_synthetic_gripper
+    monkeypatch.setattr(cli, "make_synthetic_gto_robot", lambda *a, **k: mk(*a, **{**k, "points_per_link": 10}))
+    monkeypatch.setattr(cli, "make_synthetic_gripper", lambda *a, **k: mg(*a, **{**k, "points_per_link": 10}))
+    init = scene_replica.SceneReplicaEnv.__init__
+    monkeypatch.setattr(scene_replica.SceneReplicaEnv, "__init__",
+                        lambda self, *a, **k: init(self, *a, **{**k, "window_width": 96, "window_height": 72}))
+    no_wait = types.SimpleNamespace(sleep=lambda s: None, time=time.time)
+    monkeypatch.setattr(scene_replica, "time", no_wait)
+    monkeypatch.setattr(gto_planning, "time", no_wait)
+    plan_init, ik_init = GTOPlanner.__init__, IKSolver.__init__
+    monkeypatch.setattr(GTOPlanner, "__init__", lambda self, *a, **k: plan_init(self, *a, **{**k, "iterations": 3}))
+    monkeypatch.setattr(IKSolver, "__init__", lambda self, *a, **k: ik_init(self, *a, **{**k, "iterations": 10}))
+
+    tree = str(tmp_path / "tree")
+    port_testing.make_scenereplica_tree(tree, 10, grasps_per_object=4)
+    run = ["-r", "synth7", "--assets_dir", tree, "-s", "10", "--device", "cuda"]
+    nn.min_d2_launches = interp.field_lookup_launches = 0
+    out = gto_planning.main(run + ["--outdir", str(tmp_path / "results")])
+    torch.cuda.synchronize()
+    with open(out) as f:
+        results = json.load(f)["10"]
+    plans = [np.asarray(r["plan"]) for objs in results.values() for r in objs.values() if r["plan"] is not None]
+    assert set(results) == {"nearest_first", "random"} and len(plans) == 4
+    assert all(p.shape == (9, 50) and np.isfinite(p).all() for p in plans)
+    assert nn.min_d2_launches == 3 * 4 and interp.field_lookup_launches == 7 * 4
+    nn.min_d2_launches = 0
+    agg = evaluate_plans.main(run + ["-f", out])
+    torch.cuda.synchronize()
+    assert nn.min_d2_launches == 4 and agg["trials"] == 4
+    fake_pybullet.disconnect()

@@ -123,6 +123,8 @@ def test_build_models_picks_the_dtype_of_its_device():
 SERVING_AND_SIMULATION_MODULES = (
     "parallel", "parallel.streaming", "throughput_serving", "utils.profiling", "planning.retiming", "native",
     "envs.controllers", "envs.grasps", "envs.fake_pybullet", "envs.pybullet_api", "envs.scene_replica",
+    "gto_planning", "evaluate_plans", "ik_checking", "gto_planning_mobile", "save_videos",
+    "visualize_robot", "visualize_grasps", "visualize_scenes", "mesh_sdf_demo", "utils.cli",
 )
 
 
