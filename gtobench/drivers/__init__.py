@@ -1,0 +1,1 @@
+"""Drivers: one a kind of deployment, named by a configuration's `driver`."""
