@@ -2360,42 +2360,18 @@ def k4_per_solve(planner) -> int:
 
 def host_syncs(fn) -> dict:
     """{file:line: count} of the synchronizing CUDA operations one call of
-    `fn` makes (torch.cuda.set_sync_debug_mode("warn")), each attributed
-    to the innermost frame of this package on the stack (the line that
-    reached the sync, also through torch's own Python)."""
-    import collections
-    import os
-    import traceback
-    import warnings
-
+    `fn` makes (the program's `profiling.count_syncs`: each attributed to
+    the innermost frame of the port on the stack, the line that reached
+    the sync, also through torch's own Python)."""
     import torch
 
-    counts = collections.Counter()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        ours = [f for f in traceback.extract_stack()[:-1] if f"{os.sep}grasptrajopt_tpu_torch{os.sep}" in f.filename]
-        where = (ours[-1].filename, ours[-1].lineno) if ours else (filename, lineno)
-        counts[f"{os.path.relpath(where[0])}:{where[1]}"] += 1
+    from grasptrajopt_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        # the first set_sync_debug_mode of a process gives a notice once
-        # that names synchronizing operations: let it pass unrecorded
-        warnings.simplefilter("ignore")
-        torch.cuda.set_sync_debug_mode("warn")
-        torch.cuda.set_sync_debug_mode(0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    with profiling.count_syncs() as sites:
+        fn()
     torch.cuda.synchronize()
-    return dict(counts)
+    return dict(sites)
 
 
 def sync_sites(syncs: dict) -> str:

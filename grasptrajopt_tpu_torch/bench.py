@@ -24,7 +24,7 @@ stacked table), and one all_reduce gives the global mean cost.
 
 Run on a machine with a CUDA device (there is no CPU measurement path):
 
-    python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon|bf16] [--profile]
+    python -m grasptrajopt_tpu_torch.bench [--flavour default|two_pass|long_horizon|bf16]
     python -m grasptrajopt_tpu_torch.bench --mesh 1         # the sharded solve, a world of one
     torchrun --nproc_per_node N -m grasptrajopt_tpu_torch.bench --mesh N
 
@@ -33,9 +33,8 @@ It prints one JSON line (in mesh mode rank 0 does): latency (best of
 through `parallel.stream_map` with `INFLIGHT` = 4 solves outstanding, as
 bench.py measures it), the table's `itemsize` and the corner-row bytes
 K4 reads a solve (`gather_bytes`, as the JAX bench counts them), the
-bench's quality gates (`quality_gates`), in mesh mode `mesh` ("Nxcuda")
-and the global `mean_cost`, and, with --profile, where one solve's time
-goes (`profile_solve`).
+bench's quality gates (`quality_gates`), and in mesh mode `mesh`
+("Nxcuda") and the global `mean_cost`.
 """
 
 from __future__ import annotations
@@ -379,48 +378,14 @@ def time_solves(bench: SolveBench, reps: int, pipe_reps: Optional[int] = None, i
     }
 
 
-def profile_solve(bench: SolveBench) -> dict:
-    """Where one warm solve's time goes: torch.profiler's device time and
-    count of device operations (kernels, copies) over one solve, the
-    unprofiled wall time of the same call, the busy share (device time over
-    wall time) and the operations of most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = bench.robot.device
-    bench.step()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    bench.step()
-    torch.cuda.synchronize(dev)
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bench.step()
-        torch.cuda.synchronize(dev)
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
-    return {
-        "wall_ms": wall_ms,
-        "device_ms": device_ms,
-        "device_ops": sum(e.count for e in ops),
-        "busy": device_ms / wall_ms,
-        "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
-    }
-
-
-def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool = False, mesh=None) -> dict:
-    """The bench on one CUDA device: set-up, timing and gates, and with
-    `profile` where one solve's time goes (`profile_solve`). With `mesh`
+def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", mesh=None) -> dict:
+    """The bench on one CUDA device: set-up, timing and gates. With `mesh`
     (`parallel.data_mesh`) the sharded solve of bench.py's mesh mode
     (`ShardedSolveBench`) on this rank's device; the result gains "mesh"
-    ("<n>xcuda") and the global mean cost, and has no profile (bench.py
-    skips its attribution in mesh mode)."""
+    ("<n>xcuda") and the global mean cost."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the solve bench measures a CUDA device; none is available")
-    if mesh is not None and profile:
-        raise ValueError("the sharded solve is not profiled (bench.py skips its attribution in mesh mode)")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -449,8 +414,6 @@ def run(cfg: SolveBenchConfig = SolveBenchConfig(), device="cuda", profile: bool
     if mesh is not None:
         out["mesh"] = f"{mesh.size()}x{mesh.device_type}"
         out["mean_cost"] = float(bench.metrics["mean_cost"])
-    if profile:
-        out["profile"] = profile_solve(bench)
     return out
 
 
@@ -459,20 +422,17 @@ def main():
     ap.add_argument("--flavour", choices=sorted(FLAVOURS), default="default")
     ap.add_argument("--reps", type=int, default=None)
     ap.add_argument("--pipe-reps", type=int, default=None)
-    ap.add_argument("--profile", action="store_true", help="also profile one solve (torch.profiler)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="bench.py's BENCH_MESH=N: every problem with its own field, the batch sharded over N "
                          "ranks of one card each (N > 1 under torchrun --nproc_per_node N); rank 0 prints")
     args = ap.parse_args()
-    if args.mesh and args.profile:
-        ap.error("--profile is not available with --mesh (bench.py skips its attribution in mesh mode)")
     cfg = FLAVOURS[args.flavour]
     if args.reps is not None:
         cfg = dataclasses.replace(cfg, reps=args.reps)
     if args.pipe_reps is not None:
         cfg = dataclasses.replace(cfg, pipe_reps=args.pipe_reps)
     if not args.mesh:
-        print(json.dumps({"flavour": args.flavour, **run(cfg, profile=args.profile)}))
+        print(json.dumps({"flavour": args.flavour, **run(cfg)}))
         return
     with tempfile.TemporaryDirectory() as tmp:
         # torchrun's environment names the cluster; a process alone is a world of one

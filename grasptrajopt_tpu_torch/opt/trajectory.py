@@ -20,6 +20,13 @@ Jacobian comes from `torch.func.jacfwd(has_aux=True)` (primal and tangents
 from one trace). The whole-trajectory term and the pre-iteration hook are
 batch-first. The solve runs in full precision: callers on the card keep
 TF32 off.
+
+Under `torch.profiler` each solve records its spans
+(`utils.profiling.span`): `solve` around the whole solve, `lm.iteration`
+around each iteration (its `index` and `coarse` flag), and inside it
+`lm.residuals` (the per-step residuals' Jacobians, GN blocks and
+gradient), `lm.field_term` (the whole-trajectory term's) and `lm.kkt`
+(the damped blocks and the KKT solve).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from grasptrajopt_tpu_torch.ops.block_tridiag import (
     block_tridiag_solve_cr,
 )
 from grasptrajopt_tpu_torch.ops.constants import device_vector
+from grasptrajopt_tpu_torch.utils.profiling import span
 
 
 class TrajectoryConfig(NamedTuple):
@@ -141,6 +149,10 @@ def make_trajectory_solver(
         return c
 
     def solve(qc_opt, X0, lo, hi, params, shared=None):
+        with span("solve", device=qc_opt.device):
+            return solve_spanned(qc_opt, X0, lo, hi, params, shared)
+
+    def solve_spanned(qc_opt, X0, lo, hi, params, shared):
         shared = shared or {}
         B, n = qc_opt.shape
         dtype, dev = qc_opt.dtype, qc_opt.device
@@ -164,21 +176,23 @@ def make_trajectory_solver(
         def lin_at(X, step_aux, step_fn, term):
             """One jacfwd pass at X: cost (B,), GN blocks H (B, F, n, n),
             gradient g (B, F, n)."""
-            Q = assemble(X, qc_opt)
-            per_step = vmap(lambda q, t, a, p: step_lin(q, t, a, p, step_fn),
-                            in_dims=(0, 0, None, None))
-            r_all, J_all = vmap(per_step, in_dims=(0, None, 0, 0))(
-                Q, t_all, step_aux, params
-            )  # (B, T, R), (B, T, R, n)
-            c = torch.sum(r_all * r_all, dim=(1, 2)) + smooth_cost(Q)
-            Jt = J_all[:, nf:]
-            H = torch.einsum("bfri,bfrj->bfij", Jt, Jt)
-            g = torch.einsum("bfri,bfr->bfi", Jt, r_all[:, nf:]) + smooth_grad_X(Q)
+            with span("lm.residuals"):
+                Q = assemble(X, qc_opt)
+                per_step = vmap(lambda q, t, a, p: step_lin(q, t, a, p, step_fn),
+                                in_dims=(0, 0, None, None))
+                r_all, J_all = vmap(per_step, in_dims=(0, None, 0, 0))(
+                    Q, t_all, step_aux, params
+                )  # (B, T, R), (B, T, R, n)
+                c = torch.sum(r_all * r_all, dim=(1, 2)) + smooth_cost(Q)
+                Jt = J_all[:, nf:]
+                H = torch.einsum("bfri,bfrj->bfij", Jt, Jt)
+                g = torch.einsum("bfri,bfr->bfi", Jt, r_all[:, nf:]) + smooth_grad_X(Q)
             if term is not None:
-                r2, J2 = term[1](Q, step_aux, params, shared)  # (B,T,R2), (B,T,R2,n)
-                c = c + torch.sum(r2 * r2, dim=(1, 2))
-                H = H + torch.einsum("bfri,bfrj->bfij", J2[:, nf:], J2[:, nf:])
-                g = g + torch.einsum("bfri,bfr->bfi", J2[:, nf:], r2[:, nf:])
+                with span("lm.field_term"):
+                    r2, J2 = term[1](Q, step_aux, params, shared)  # (B,T,R2), (B,T,R2,n)
+                    c = c + torch.sum(r2 * r2, dim=(1, 2))
+                    H = H + torch.einsum("bfri,bfrj->bfij", J2[:, nf:], J2[:, nf:])
+                    g = g + torch.einsum("bfri,bfr->bfi", J2[:, nf:], r2[:, nf:])
             return c, H, g
 
         def damped_D(H, lam):
@@ -193,7 +207,8 @@ def make_trajectory_solver(
             )
 
         def solve_from(H, g, lam):
-            return -kkt_solve(damped_D(H, lam), L_off, g)
+            with span("lm.kkt"):
+                return -kkt_solve(damped_D(H, lam), L_off, g)
 
         def pick(accept, a, b):
             return torch.where(accept.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
@@ -210,8 +225,9 @@ def make_trajectory_solver(
                 else aux_prev
             )
             c_now, H, g = lin_at(X, step_aux, step_residual_fn, traj_term)
-            D = damped_D(H, lam)
-            dX = -kkt_solve(D, L_off, g)
+            with span("lm.kkt"):
+                D = damped_D(H, lam)
+                dX = -kkt_solve(D, L_off, g)
             cands = torch.minimum(
                 torch.maximum(X[:, None] + alphas[None, :, None, None] * dX[:, None], lo), hi
             )  # (B, A, F, n)
@@ -279,8 +295,9 @@ def make_trajectory_solver(
             qc_opt_c = qc_opt.repeat_interleave(A, dim=0)
             c0 = residuals_cost(X0, qc_opt, aux0, params, shared, step_residual_fn, traj_term)
             state = (X0, lam0, c0, aux0)
-            for _ in range(config.iterations):
-                state, acc = iteration_two(state)
+            for i in range(config.iterations):
+                with span("lm.iteration", index=i, coarse=False):
+                    state, acc = iteration_two(state)
                 accepts.append(acc)
             X, lam, c, step_aux = state
             return assemble(X, qc_opt), c, {
@@ -292,13 +309,15 @@ def make_trajectory_solver(
         g0 = torch.zeros((B, F, n), dtype=dtype, device=dev)
         state = (X0, X0, H0, g0, big, lam0, aux0)
         if k_coarse:
-            for _ in range(k_coarse):
-                state, acc = iteration_single(state, step_residual_fn, term_coarse)
+            for i in range(k_coarse):
+                with span("lm.iteration", index=i, coarse=True):
+                    state, acc = iteration_single(state, step_residual_fn, term_coarse)
                 accepts.append(acc)
             _, X_acc_c, _, _, _, lam_c, aux_c = state
             state = (X_acc_c, X_acc_c, H0, g0, big, lam_c, aux_c)
-        for _ in range(config.iterations - k_coarse):
-            state, acc = iteration_single(state, step_residual_fn, traj_term)
+        for i in range(k_coarse, config.iterations):
+            with span("lm.iteration", index=i, coarse=False):
+                state, acc = iteration_single(state, step_residual_fn, traj_term)
             accepts.append(acc)
         X_try, X_acc, _, _, c_acc, lam, step_aux = state
         diag = {"lambda": lam, "accepts": torch.stack(accepts, dim=1)}

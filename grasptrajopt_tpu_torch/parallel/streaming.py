@@ -13,7 +13,8 @@ outstanding and hand results back in submission order:
 
 A call is retired by a `torch.cuda.Event` recorded on the current stream
 right after `fn(*args)` returns; retiring waits on it
-(`Event.synchronize`), the counterpart of `jax.block_until_ready`. A
+(`Event.synchronize`), the counterpart of `jax.block_until_ready`, inside
+a `stream.retire` span (`utils.profiling.span`). A
 result that holds no CUDA tensor is finished when `fn` returns, and no
 event is recorded for it. Results (tensors, or tuples, lists, dicts and
 NamedTuples of them) come back unchanged; the depth bound is what bounds
@@ -31,6 +32,8 @@ from collections import deque
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
+
+from grasptrajopt_tpu_torch.utils.profiling import span
 
 __all__ = ["stream_map", "PlanStream"]
 
@@ -53,20 +56,21 @@ def _cuda_device(result) -> Optional[torch.device]:
 
 def _launch(fn: Callable, args: tuple):
     """Call fn(*args) and record an event on the current stream of the
-    result's device: (result, event or None)."""
+    result's device: (result, event or None, device or None)."""
     result = fn(*args)
     dev = _cuda_device(result)
     if dev is None:
-        return result, None
+        return result, None, None
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(dev))
-    return result, event
+    return result, event, dev
 
 
 def _retire(entry):
-    result, event = entry
-    if event is not None:
-        event.synchronize()
+    result, event, dev = entry
+    with span("stream.retire", device=dev):
+        if event is not None:
+            event.synchronize()
     return result
 
 

@@ -1,0 +1,9 @@
+"""Device operations in the program's `lm.kkt` spans (the damped blocks and
+the block-tridiagonal solve) over the traced window's solves."""
+
+from gtobench.spans import device_per_call
+
+
+def read(run):
+    split = device_per_call(run, "lm.kkt")
+    return None if split is None else split[0]

@@ -845,6 +845,45 @@ def test_bench_and_served_solves_make_no_host_sync(cuda, flavour):
     assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(Qs).all())
 
 
+def test_recorded_spans_add_no_host_sync(cuda):
+    """Under torch.profiler a bench solve and a served solve record their
+    spans on the card; the recorder's anchor is no sync of the solves'
+    (an enclosing count_syncs sees none, nor does each `solve` span), while
+    an `.item()` is seen; each reading's spans get stream intervals inside
+    their solve's, and the next reading takes a new anchor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grasptrajopt_tpu_torch import throughput_serving as serving
+    from grasptrajopt_tpu_torch.utils import profiling
+
+    pb, robot, cfg = _small_bench(cuda)
+    bench = pb.SolveBench(robot, cfg)
+    server = serving.Server(iterations=2, goals=2, device=cuda, points_per_link=8)
+    request = server.request(0, 4)
+    bench.step(), server.solve(*request)
+    with profiling.count_syncs() as sites:
+        torch.ones(1, device=cuda).item()
+    assert sum(sites.values()) == 1
+    profiling.resolved_spans()
+    anchors = set()
+    for _ in range(2):
+        before = len(profiling.recorder.ring)
+        with profile(activities=[ProfilerActivity.CUDA]):
+            with profiling.count_syncs() as outer:
+                bench.step(), server.solve(*request)
+        torch.cuda.synchronize()
+        n = len(profiling.recorder.ring) - before
+        anchors |= {id(s.anchor[1]) for s in list(profiling.recorder.ring)[-n:]}
+        spans = [s for s in profiling.resolved_spans()[-n:] if s.solve is not None]
+        assert outer == {}
+        solves = [s for s in spans if s.name == "solve"]
+        assert len(solves) == 2 and [s.syncs for s in solves] == [0, 0]
+        for s in spans:
+            (top,) = [p for p in solves if p.solve == s.solve]
+            assert top.stream[0] <= s.stream[0] <= s.stream[1] <= top.stream[1]
+    assert len(anchors) == 2
+
+
 def test_sharded_step_at_a_world_of_one_is_the_unsharded_solve(cuda, tmp_path, monkeypatch):
     """bench.py's mesh mode on NCCL at a world of one: the step's plans and
     costs bit for bit the unsharded stacked solve's, its mean cost
