@@ -11,7 +11,8 @@ result line:
   1. device: a CUDA device is required (there is no CPU path); prints the
      card's name and power limit as nvidia-smi reports them;
   2. build: compiles the kernels (csrc/min_d2.cu: K1; csrc/nearest.cu: K2
-     and K3; csrc/field_lookup.cu: K4) with nvcc for sm_90a from the
+     and K3; csrc/field_lookup.cu: K4; csrc/block_tridiag.cu: K5) with
+     nvcc for sm_90a from the
      sources in this checkout, one nvcc per source, all started together,
      and prints nvcc's register and shared-memory report; beside them the
      host geometry library (csrc/geomcore.cpp) with g++;
@@ -100,7 +101,13 @@ result line:
   7. bench solve (grasptrajopt_tpu_torch.bench, the solve the JAX
      package's bench.py measures): 32 problems of 8 goals against one
      shared slab field, the synthetic arm's 1,000 body points, IK warm
-     starts with the multistart rescue. First K4 against its plain version
+     starts with the multistart rescue. First K5 against its plain loop
+     on the same CUDA tensors at the KKT shapes of the cell, the serving
+     path and the bench default ((2,048 | 512 | 32, 48, 7), float32, the
+     solver's expanded -w I), within 1e-4 of the plain loop's largest |x|,
+     one launch a call, its device time queued, the plain loop's device
+     ops and time and a lone call's, and its bound by bytes and by the
+     serial chain. Then K4 against its plain version
      on the same CUDA tensors: the bench's fine and coarse passes (1.6 M
      and 0.8 M body points of the warm starts) both as the AoS views the
      Jacobian pass gives (every launch of the default solve) and as the
@@ -127,13 +134,14 @@ result line:
      default flavour (T = 50, single pass, coarse 2+1, final_trust), 7 in
      the two-pass flavour (1 + 3 x 2), 3 in the long-horizon flavour
      (T = 200, cyclic reduction) and 3 in the bf16 flavour (the default
-     with a bf16 table, the JAX bench's BENCH_BF16), K1-K3 none; the plans
+     with a bf16 table, the JAX bench's BENCH_BF16), K1-K3 none, K5 once
+     an iteration (3) but in the long horizon (0); the plans
      finite, within the
      limits, pinned, their final field values equal to plain K4's at the
      AoS views of their body points (fine and, with a coarse phase, coarse
      stride); the
-     quality gates reported, not gated; cyclic reduction against the
-     Thomas solve at (32, 198, 7, 7) to 1e-4 relative;
+     quality gates reported, not gated; cyclic reduction against K5 and
+     against the plain Thomas loop at (32, 198, 7, 7) to 1e-4 relative;
   8. closed loop (grasptrajopt_tpu_torch.synthetic_eval, the harness a
      user runs): the synthetic arm and its gripper, one object a trial at
      full width (160x160, 32 grasps, 1,000 body points, the bench's
@@ -266,8 +274,9 @@ result line:
      each kernel's roofline bound and, for K4 in each mode, the library
      call's time; K2 / K3's times queued, K3 also at the occupancy
      builds; K4's launches are the bench solve's, a served solve's are
-     printed before; K4 on the sharded step's stacked tables), and the
-     last line {"ok": true, "device": {...}}.
+     printed before; K4 on the sharded step's stacked tables; K5 at the
+     cell's KKT shape, its launches a bench solve's), and the last line
+     {"ok": true, "device": {...}}.
 
 No solve of phases 5, 7, 11 and 12 may synchronize the host
 (torch.cuda.set_sync_debug_mode, `host_syncs`): the IK collision screen,
@@ -290,7 +299,8 @@ NEAR_TOL = 1e-5  # m^2 for K2 / K3's d2 below 10 m^2 ...
 NEAR_RTOL = 1e-6  # ... and relative above it (PAD_COORD rows: ~3e12 m^2)
 LOOKUP_TOL = 1e-5  # K4: |err| <= LOOKUP_TOL * (1 + |plain|), value and gradients
 CR_RTOL = 1e-4  # cyclic reduction against the Thomas solve, float32 on the card
-KERNEL_SOURCES = ("min_d2", "nearest", "field_lookup")
+K5_RTOL = 1e-4  # K5 against the plain loop in float32, relative to the largest |x|
+KERNEL_SOURCES = ("min_d2", "nearest", "field_lookup", "block_tridiag")
 # the H100 SXM's peaks (NVIDIA's data sheet, at 700 W): device memory, and the
 # FP32 rate of 67 TFLOP/s as lane instructions (a fused multiply-add, 2
 # flops, issues once)
@@ -300,6 +310,13 @@ FP32_INSTR_PER_S = 3.35e13
 # point) pair: three subtracts, three multiply(-add)s (the penalty the
 # first one's addend) and the min
 INSTR_PER_PAIR = 7
+# K5's serial chain: the H100 SXM's top SM clock (1,980 MHz) and the
+# latency of one dependent FP32 fused multiply-add, 4 cycles
+SM_CLOCK_HZ = 1.98e9
+DEP_CYCLES = 4
+# K5 at the KKT shapes (B, F, n) of the cell (2,048 problems a solve), the
+# serving path (512) and the bench default (32)
+K5_SHAPES = ((2_048, 48, 7), (512, 48, 7), (32, 48, 7))
 
 
 def bound_ms(nbytes: float, instructions: float):
@@ -308,6 +325,21 @@ def bound_ms(nbytes: float, instructions: float):
     once) and issues `instructions` FP32 lane instructions."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, instructions / FP32_INSTR_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k5_bound(B, F, n, itemsize, lower_elems):
+    """(ms, by, bytes ms, chain ms) of one K5 launch. Bytes: diag, rhs and
+    x once each and lower's distinct elements (the solver's -w I: n^2).
+    Chain: the recursion's dependent operations, F (13 n + 2), each at one
+    dependent FP32 multiply-add's latency: a forward step's two
+    substitutions (2n each: a multiply-add and a division a row), its
+    product with L (n + 1) and its Cholesky (3n: the square root, the
+    division, the next column's update), a backward step's product with
+    L^T (n + 1) and substitutions (4n). A floor: an IEEE division or
+    square root takes several such latencies."""
+    t_bytes = 1e3 * itemsize * (B * F * n * n + lower_elems + 2 * B * F * n) / HBM_BYTES_PER_S
+    t_chain = 1e3 * F * (13 * n + 2) * DEP_CYCLES / SM_CLOCK_HZ
+    return max(t_bytes, t_chain), ("bytes" if t_bytes >= t_chain else "serial chain"), t_bytes, t_chain
 
 
 def nvidia_smi_line() -> str:
@@ -374,20 +406,50 @@ def queued_ms(fn, calls: int = 10) -> float:
     return slept_ms / calls
 
 
+# kineto keeps a device event only inside the host's capture window, and a
+# process's later profiler sessions tie the trace's device clock to the
+# host's up to 51-153 ms off (PERF.md section 5): a profiled call starts and
+# ends this far inside its window, or the card's last ops of a call it
+# paces fall outside
+PROFILE_MARGIN_S = 0.25
+
+
+def profiled(fn, activities):
+    """(torch.profiler's profile, fn's result) of one call of `fn` and the
+    device work it queued, PROFILE_MARGIN_S of idle host time on either
+    side."""
+    import torch
+    from torch.profiler import profile
+
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return prof, out
+
+
 def device_kernels(fn) -> list:
     """[(name, device ms)] of the device kernels of one call of `fn`, by
     torch.profiler: which library kernel a yardstick runs."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     return [(e.key[:120], round(e.self_device_time_total / 1e3, 4))
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ops(fn) -> tuple:
+    """(device ops, their summed device ms) of one call of `fn`, by
+    torch.profiler: what a chain of small launches costs the card alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    prof, _ = profiled(fn, [ProfilerActivity.CUDA])
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
 
 
 def phase_build():
@@ -1300,27 +1362,79 @@ def phase_field_lookup_vs_plain(dev, bench):
     return out
 
 
-def phase_cr_vs_thomas(dev, B=32, T=198, n=7):
-    """Cyclic reduction against the Thomas solve on the card at the long
-    horizon's KKT shape; returns the max relative difference."""
+def kkt_system(dev, B, F, n, lower="solver", seed=5):
+    """A float32 SPD block-tridiagonal system on the card: D_t = A A^T +
+    (2n + 2) I; `lower` "solver" is the LM's expanded -w I (stride 0,
+    w = 1), "dense" random blocks 0.3 N(0, 1)."""
     import torch
 
-    from grasptrajopt_tpu_torch.ops.block_tridiag import block_tridiag_solve, block_tridiag_solve_cr
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, F, n, n), generator=gen, device=dev)
+    D = A @ A.transpose(-1, -2) + (2 * n + 2) * torch.eye(n, device=dev)
+    if lower == "solver":
+        L = (-torch.eye(n, device=dev)).expand(B, F - 1, n, n)
+    else:
+        L = 0.3 * torch.randn((B, F - 1, n, n), generator=gen, device=dev)
+    return D, L, torch.randn((B, F, n), generator=gen, device=dev)
 
-    gen = torch.Generator(device=dev).manual_seed(4)
-    A = torch.randn((B, T, n, n), generator=gen, device=dev)
-    D = A @ A.transpose(-1, -2) + 2.0 * n * torch.eye(n, device=dev)
-    L = 0.3 * torch.randn((B, T - 1, n, n), generator=gen, device=dev)
-    b = torch.randn((B, T, n), generator=gen, device=dev)
-    x_th = block_tridiag_solve(D, L, b)
-    x_cr = block_tridiag_solve_cr(D, L, b)
-    rel = float((x_cr - x_th).abs().max() / x_th.abs().max())
-    if not rel <= CR_RTOL:
-        raise AssertionError(f"cyclic reduction differs from the Thomas solve by {rel:.3e} relative")
-    t_th = statistics.median(cuda_ms(lambda: block_tridiag_solve(D, L, b), 3))
-    t_cr = statistics.median(cuda_ms(lambda: block_tridiag_solve_cr(D, L, b), 3))
-    print(f"[bench] KKT ({B}, {T}, {n}, {n}): cyclic reduction vs Thomas max rel diff {rel:.3e} "
-          f"(tolerance {CR_RTOL:g}); median {t_cr:.3f} ms vs {t_th:.3f} ms")
+
+def phase_block_tridiag_vs_plain(dev):
+    """K5 against the plain loop on the same CUDA tensors at K5_SHAPES,
+    float32, with the solver's expanded -w I: the largest difference
+    relative to the plain loop's largest |x| (fails above K5_RTOL), K5's
+    launches a call (its counter: 1) and device time a call queued, the
+    plain loop's device ops and their summed device time (torch.profiler)
+    and a lone call's CUDA-event time, which the host paces; K5's bound by
+    bytes and by the serial chain (`k5_bound`). Returns the record of the
+    cell's shape (the first)."""
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+
+    out = None
+    for B, F, n in K5_SHAPES:
+        D, L, b = kkt_system(dev, B, F, n)
+        before = bt.block_tridiag_launches
+        got = bt.block_tridiag_solve(D, L, b)
+        launches = bt.block_tridiag_launches - before
+        want = bt.block_tridiag_solve_reference(D, L, b)
+        err = float((got - want).abs().max() / want.abs().max())
+        if launches != 1 or not err <= K5_RTOL:
+            raise AssertionError(f"K5 at ({B}, {F}, {n}): {launches} launches, max rel diff {err:.3e} "
+                                 f"(tolerance {K5_RTOL:g})")
+        k_ms = statistics.median(queued_ms(lambda: bt.block_tridiag_solve(D, L, b)) for _ in range(5))
+        plain_ops, plain_ms = device_ops(lambda: bt.block_tridiag_solve_reference(D, L, b))
+        plain_lone = statistics.median(cuda_ms(lambda: bt.block_tridiag_solve_reference(D, L, b), 3))
+        bound, by, t_bytes, t_chain = k5_bound(B, F, n, 4, n * n)
+        print(f"[k5] ({B}, {F}, {n}) float32, -w I: max rel diff vs plain {err:.3e} (tolerance {K5_RTOL:g}); "
+              f"launches a call: K5 {launches}, plain {plain_ops}; K5 {k_ms:.4f} ms queued; plain {plain_ms:.4f} ms "
+              f"device time summed, a lone call {plain_lone:.3f} ms (CUDA events, host-paced); bound {bound:.4f} ms "
+              f"({by}; bytes {t_bytes:.4f} ms, serial chain {t_chain:.4f} ms): {100 * bound / k_ms:.1f}%")
+        if out is None:
+            out = {"max_rel_err": err, "ms": k_ms, "plain_ms": plain_ms, "plain_lone_ms": plain_lone,
+                   "bound_ms": bound, "bound_by": by, "plain_ops": plain_ops}
+    return out
+
+
+def phase_cr_vs_thomas(dev, B=32, T=198, n=7):
+    """Cyclic reduction against the Thomas solve on the card at the long
+    horizon's KKT shape (dense couplings): against K5 and against the
+    plain loop; returns the max relative difference to K5."""
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+
+    D, L, b = kkt_system(dev, B, T, n, lower="dense", seed=4)
+    x_k5 = bt.block_tridiag_solve(D, L, b)
+    x_plain = bt.block_tridiag_solve_reference(D, L, b)
+    x_cr = bt.block_tridiag_solve_cr(D, L, b)
+    rel = float((x_cr - x_k5).abs().max() / x_k5.abs().max())
+    rel_plain = float((x_cr - x_plain).abs().max() / x_plain.abs().max())
+    if not (rel <= CR_RTOL and rel_plain <= CR_RTOL):
+        raise AssertionError(f"cyclic reduction differs from K5 by {rel:.3e} and from the plain loop by "
+                             f"{rel_plain:.3e} relative")
+    t_k5 = statistics.median(queued_ms(lambda: bt.block_tridiag_solve(D, L, b)) for _ in range(3))
+    t_cr = statistics.median(cuda_ms(lambda: bt.block_tridiag_solve_cr(D, L, b), 3))
+    t_th = statistics.median(cuda_ms(lambda: bt.block_tridiag_solve_reference(D, L, b), 3))
+    print(f"[bench] KKT ({B}, {T}, {n}, {n}): cyclic reduction vs K5 max rel diff {rel:.3e}, vs the plain "
+          f"Thomas loop {rel_plain:.3e} (tolerance {CR_RTOL:g}); K5 {t_k5:.4f} ms queued; lone calls (CUDA "
+          f"events): cyclic reduction {t_cr:.3f} ms, plain Thomas loop {t_th:.3f} ms")
     return rel
 
 
@@ -1370,18 +1484,21 @@ def depth_rates(pb, bench):
 
 def phase_bench(dev):
     """The port's bench solve (grasptrajopt_tpu_torch.bench) at full width
-    in its four flavours, and K4 against plain. Returns (the K4 records,
-    float32 and bf16, and K4 launches of one default and one bf16 solve)."""
+    in its four flavours, K5 and K4 against plain. Returns (the K4 records,
+    float32 and bf16, K4 launches of one default and one bf16 solve, the K5
+    record and K5 launches of one default solve)."""
     import torch
 
     from grasptrajopt_tpu_torch import bench as pb
-    from grasptrajopt_tpu_torch.ops import interp, nn
+    from grasptrajopt_tpu_torch.ops import block_tridiag, interp, nn
     from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
 
+    k5 = phase_block_tridiag_vs_plain(dev)
     robot = make_synthetic_gto_robot(device=dev, dtype=torch.float32, points_per_link=100)
     k4 = None
     launches = {}
-    for flavour, want in (("default", 3), ("two_pass", 7), ("long_horizon", 3), ("bf16", 3)):
+    # K4 and K5 launches a solve; the long horizon solves its KKT by cyclic reduction
+    for flavour, want, want5 in (("default", 3, 3), ("two_pass", 7, 3), ("long_horizon", 3, 0), ("bf16", 3, 3)):
         cfg = pb.FLAVOURS[flavour]
         t0 = time.perf_counter()
         bench = pb.SolveBench(robot, cfg)
@@ -1405,18 +1522,22 @@ def phase_bench(dev):
         if flavour == "default":
             depth_rates(pb, bench)
         nn.min_d2_launches = nn.nearest_launches = nn.min_sqdist_launches = interp.field_lookup_launches = 0
+        block_tridiag.block_tridiag_launches = 0
         Q, cost, _ = bench.step()
         torch.cuda.synchronize(dev)
-        counts = (nn.min_d2_launches, nn.nearest_launches, nn.min_sqdist_launches, interp.field_lookup_launches)
-        if counts != (0, 0, 0, want):
-            raise AssertionError(f"bench {flavour}: K1-K4 launched {counts} times a solve, expected (0, 0, 0, {want})")
+        counts = (nn.min_d2_launches, nn.nearest_launches, nn.min_sqdist_launches, interp.field_lookup_launches,
+                  block_tridiag.block_tridiag_launches)
+        if counts != (0, 0, 0, want, want5):
+            raise AssertionError(f"bench {flavour}: K1-K5 launched {counts} times a solve, expected "
+                                 f"(0, 0, 0, {want}, {want5})")
         launches[flavour] = counts[3]
+        launches[flavour + " K5"] = counts[4]
         if tuple(Q.shape) != (cfg.batch, cfg.T, robot.num_opt_joints) or not bool(torch.isfinite(cost).all()):
             raise AssertionError(f"bench {flavour}: Q {tuple(Q.shape)}, cost {cost.tolist()}")
         check_plans(f"bench {flavour}", bench.full_q(Q), bench.qc, robot)
         err = check_plan_fields(f"bench {flavour} final fields", bench.planner, bench.table, bench.full_q(Q))
         gates = bench.gates(Q)
-        print(f"[bench] {flavour}: K4 launches a solve {counts[3]}; Q finite, within limits, pinned; "
+        print(f"[bench] {flavour}: K4 launches a solve {counts[3]}, K5 {counts[4]}; Q finite, within limits, pinned; "
               f"final fields vs plain max |err| {err:.3e}; cost median {float(cost.median()):.4f}; host syncs "
               "in one solve (set_sync_debug_mode): none")
         print(f"[bench] {flavour}: latency {timed['latency_s'] * 1e3:.3f} ms (best of "
@@ -1427,7 +1548,7 @@ def phase_bench(dev):
         if flavour == "long_horizon":
             phase_cr_vs_thomas(dev, cfg.batch, cfg.T - 2, robot.num_opt_joints)
         del bench, timed, Q
-    return k4, launches
+    return k4, launches, k5
 
 
 # the closed-loop phase's planner flavour: the bench's (3 iterations, single
@@ -2397,7 +2518,7 @@ def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, ite
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from grasptrajopt_tpu_torch import native
     from grasptrajopt_tpu_torch import throughput_serving as serving
@@ -2467,8 +2588,7 @@ def phase_serving(dev, batch: int = 16, batches: int = 8, inflight: int = 4, ite
     # took ~50 s); then a trace() of a served solve of a one-iteration
     # server, the same path at 1 + 2 x 1 K4 launches
     with timer.phase("profile"):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            syncs = host_syncs(lambda: server.solve(*requests[0]))
+        prof, syncs = profiled(lambda: host_syncs(lambda: server.solve(*requests[0])), [ProfilerActivity.CUDA])
         device_ns = collections.Counter()
         device_n = collections.Counter()
         for e in prof.profiler.kineto_results.events():
@@ -2832,14 +2952,10 @@ def device_profile(fn) -> dict:
     slow); the top device operations by time."""
     import collections
 
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn, [ProfilerActivity.CUDA])
     device_ns, device_n = collections.Counter(), collections.Counter()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -3119,7 +3235,7 @@ def main() -> int:
     k2_launches, k3_launches = phase_pergoal(path, obs, out, dev)
     lap("per-goal tiers")
     del path, obs, out
-    k4, k4_launches = phase_bench(dev)
+    k4, k4_launches, k5 = phase_bench(dev)
     lap("bench solve")
     phase_closed_loop(dev)
     lap("closed loop")
@@ -3167,6 +3283,11 @@ def main() -> int:
                "tools/probe_vmem_gather.py:52", k4_launches["bf16"], *k4_fields(k4["bf16"])),
         record("K4 field_lookup on per-problem stacked tables (the sharded bench step: 32 slabs, 196 MB)",
                "field_lookup.cu", "tools/probe_vmem_gather.py:52", sharded["launches"], *k4_fields(sharded)),
+        record("K5 block_tridiag (the KKT's block Thomas solve at (2,048, 48, 7), float32; ms queued, plain ms "
+               "its device ops summed; max_abs_err relative to max |x|)", "block_tridiag.cu",
+               "none: grasptrajopt_tpu/ops/block_tridiag.py:block_tridiag_solve is a lax.scan",
+               k4_launches["default K5"], k5["max_rel_err"], k5["ms"], k5["plain_ms"], k5["bound_ms"],
+               k5["bound_by"], None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,22 +1,41 @@
 """Batched block-tridiagonal SPD solve (block Thomas / Cholesky recursion).
 
 Port of grasptrajopt_tpu/ops/block_tridiag.py (`block_tridiag_solve`,
-`block_tridiag_solve_cr`, `block_tridiag_matvec`). Each `lax.scan` over
-time is a Python loop over T here, so one Thomas solve is O(T) small
-launches on the card and one cyclic-reduction solve O(log T); a kernel or
-a CUDA graph for it is later work. Any leading batch dims are carried
-through (the time axis is -3 for blocks, -2 for vectors).
+`block_tridiag_solve_cr`, `block_tridiag_matvec`). Any leading batch dims
+are carried through (the time axis is -3 for blocks, -2 for vectors).
+
+K5 (`block_tridiag_solve`): the Thomas solve of every LM iteration's KKT
+system. On the card it is the hand-written CUDA kernel
+`csrc/block_tridiag.cu`, the whole recursion for the whole batch in one
+launch; its plain-torch version `block_tridiag_solve_reference` sits beside
+it, a Python loop over T whose every step is a chain of small batched
+launches (~18,300 a call at T = 48, n = 7). The wrapper takes the plain
+version ONLY for tensors on the CPU; a CUDA tensor launches the kernel or
+raises. The JAX package's solve is a `lax.scan`: K5 replaces no TPU kernel.
+
+Cyclic reduction and the matvec stay plain torch: O(log T) batched
+launches, and the matvec only in the two-pass iteration.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
+from grasptrajopt_tpu_torch.ops import cuda_build
 from grasptrajopt_tpu_torch.ops.smallchol import (
     MAX_UNROLL_N,
     cholesky_small,
     cholesky_solve_small,
 )
+
+# K5 launches in this process (`block_tridiag_solve` on the card)
+block_tridiag_launches = 0
+# K5's block: 128 threads, 16 / 8 / 4 problems (n <= 7 / n <= 15 / n = 16);
+# the grid is the batch over that
+K5_THREADS = 128
 
 
 def _block_linalg(n: int):
@@ -33,8 +52,8 @@ def _block_linalg(n: int):
     return torch.linalg.cholesky, chol_solve
 
 
-def block_tridiag_solve(diag, lower, rhs):
-    """Solve H x = rhs with H SPD block-tridiagonal.
+def block_tridiag_solve_reference(diag, lower, rhs):
+    """Plain-torch K5: solve H x = rhs with H SPD block-tridiagonal.
 
     diag (..., T, n, n) diagonal blocks; lower (..., T-1, n, n) sub-diagonal
     blocks L_t = H[t+1, t]; rhs (..., T, n). Returns x (..., T, n), by the
@@ -63,6 +82,82 @@ def block_tridiag_solve(diag, lower, rhs):
         x = chol_solve(chols[t], ys[t] - (L_t.transpose(-1, -2) @ x[..., None])[..., 0])
         xs.append(x)
     return torch.stack(xs[::-1], dim=-2)
+
+
+def _declare(lib):
+    # every pointer and the stream as c_void_p: ctypes would cut a plain
+    # int argument to 32 bits
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gto_block_tridiag.argtypes = [p, p, ll, ll, ll, ll, p, p, p, i, i, i, i, i, p]
+    lib.gto_block_tridiag.restype = ctypes.c_int
+    lib.gto_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gto_cuda_error_string.restype = ctypes.c_char_p
+
+
+def k5_operands(diag, lower, rhs):
+    """(B, F, n, lower4): K5's problem count (the leading dims flattened),
+    blocks, block size and `lower` as a (B, F - 1, n, n) view whose strides
+    the kernel reads (the solver's expanded -w I has stride 0: no copy).
+    Raises on what the kernel does not take: another dtype than float32 /
+    float64 or mixed dtypes, n outside 1..MAX_UNROLL_N, shapes that do not
+    match, no blocks, a non-contiguous `diag` or `rhs`, inputs that need a
+    gradient."""
+    if diag.dim() < 3 or diag.shape[-1] != diag.shape[-2]:
+        raise ValueError(f"K5 takes diag (..., F, n, n), got {tuple(diag.shape)}")
+    lead, F, n = tuple(diag.shape[:-3]), diag.shape[-3], diag.shape[-1]
+    if tuple(lower.shape) != lead + (F - 1, n, n) or tuple(rhs.shape) != lead + (F, n):
+        raise ValueError(
+            f"K5 takes diag (..., F, n, n), lower (..., F-1, n, n), rhs (..., F, n); got "
+            f"{tuple(diag.shape)}, {tuple(lower.shape)}, {tuple(rhs.shape)}"
+        )
+    dtypes = {diag.dtype, lower.dtype, rhs.dtype}
+    if len(dtypes) != 1 or diag.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"K5 takes float32 or float64 blocks of one dtype, got {[str(d) for d in dtypes]}")
+    if not 1 <= n <= MAX_UNROLL_N:
+        raise ValueError(f"K5 takes blocks of 1 to {MAX_UNROLL_N} rows, got n = {n}")
+    if F < 1:
+        raise ValueError("K5 needs at least one block")
+    if not (diag.is_contiguous() and rhs.is_contiguous()):
+        raise ValueError("K5 takes a contiguous diag and rhs")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (diag, lower, rhs)):
+        raise RuntimeError("K5 has no backward: solve outside autograd")
+    B = math.prod(lead)
+    return B, F, n, lower.reshape((B, F - 1, n, n))
+
+
+def block_tridiag_solve(diag, lower, rhs):
+    """K5: solve H x = rhs with H SPD block-tridiagonal; see
+    `block_tridiag_solve_reference` for the layout and the recursion.
+
+    CPU tensors take the plain version. On the card, diag and rhs must be
+    contiguous, all three float32 or float64 on one device, 1 <= n <= 16
+    (MAX_UNROLL_N) and F >= 1 (`k5_operands`); that launches
+    `csrc/block_tridiag.cu` once on the current stream, with no read back
+    to the host. Anything else raises.
+    """
+    global block_tridiag_launches
+    tensors = (diag, lower, rhs)
+    if all(t.device.type == "cpu" for t in tensors):
+        return block_tridiag_solve_reference(diag, lower, rhs)
+    dev = diag.device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"K5 needs its tensors on one CUDA device, got {[str(t.device) for t in tensors]}")
+    B, F, n, lower4 = k5_operands(diag, lower, rhs)
+    x = torch.empty(rhs.shape, dtype=rhs.dtype, device=dev)
+    if B == 0:
+        return x
+    fac = torch.empty((B, F, n, n), dtype=diag.dtype, device=dev)  # the factors C_t
+    lib = cuda_build.load("block_tridiag", _declare)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gto_block_tridiag(
+            diag.data_ptr(), lower4.data_ptr(), *lower4.stride(), rhs.data_ptr(), x.data_ptr(),
+            fac.data_ptr(), B, F, n, int(diag.dtype == torch.float64), K5_THREADS, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: {lib.gto_cuda_error_string(err).decode()}")
+    block_tridiag_launches += 1
+    return x
 
 
 def block_tridiag_solve_cr(diag, lower, rhs):

@@ -8,7 +8,9 @@ with nvcc alone (no PyTorch headers, no ninja) into
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
 A library is rebuilt when its source or any shared header (`csrc/*.cuh`)
-is newer.
+is newer. A source with many template instances (K5's 32: n = 1..16 in
+float32 and float64) adds `-split-compile=0`, so nvcc optimizes them on
+every core at once.
 
 Nothing here runs at import time.
 """
@@ -28,6 +30,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc flags beyond the common ones, by source
+EXTRA_FLAGS: Dict[str, List[str]] = {"block_tridiag": ["-split-compile=0"]}
 
 
 @dataclass
@@ -62,7 +66,7 @@ def build(name: str, force: bool = False) -> BuildResult:
     cmd = [
         nvcc_executable(), "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(src),
+        *EXTRA_FLAGS.get(name, []), "-o", str(tmp), str(src),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     log = proc.stdout + proc.stderr

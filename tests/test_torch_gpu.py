@@ -1,4 +1,4 @@
-"""K1-K4 on the card: the hand-written CUDA kernels against their
+"""K1-K5 on the card: the hand-written CUDA kernels against their
 plain-torch versions on the same CUDA tensors; K1 and K2 / K3 at every
 cluster split. Marked `gpu`; every test
 skips where there is no CUDA device. Run on the card with
@@ -972,3 +972,123 @@ def test_scenereplica_driver_on_the_card(cuda, tmp_path, monkeypatch):
     torch.cuda.synchronize()
     assert nn.min_d2_launches == 4 and agg["trials"] == 4
     fake_pybullet.disconnect()
+
+
+# -- K5: the block-tridiagonal KKT solve ------------------------------------------
+
+K5_RTOL_F64 = 1e-10  # float64: K5 against the plain loop, relative to the largest |x|
+
+
+def _kkt(dev, lead, F, n, lower, seed=0):
+    """A float64 SPD block-tridiagonal system on `dev`: D_t = A A^T +
+    (2n + 2) I, so no block row's off-diagonal blocks outweigh its diagonal;
+    `lower` "solver" is the LM's expanded -w I view (stride 0, w = 1),
+    "dense" random blocks of norm ~0.3 x 2 sqrt(n)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn(lead + (F, n, n), generator=g, dtype=torch.float64)
+    eye = torch.eye(n, dtype=torch.float64)
+    D = A @ A.transpose(-1, -2) + (2 * n + 2) * eye
+    rhs = torch.randn(lead + (F, n), generator=g, dtype=torch.float64)
+    if lower == "solver":
+        L = (-1.0 * eye).to(dev).expand(lead + (F - 1, n, n))
+    else:
+        L = (0.3 * torch.randn(lead + (F - 1, n, n), generator=g, dtype=torch.float64)).to(dev)
+    return D.to(dev), L, rhs.to(dev)
+
+
+def _max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("lower", ["solver", "dense"])
+@pytest.mark.parametrize(
+    "lead,F,n",
+    [
+        ((2_048,), 48, 7),  # the cell's solve
+        ((512,), 48, 7),  # the serving path
+        ((32,), 48, 7),  # the bench default
+        ((4,), 198, 7),  # T = 200 without cyclic reduction
+        ((3,), 48, 1),
+        ((3,), 48, 7),
+        ((3,), 48, 8),
+        ((3,), 48, 16),
+        ((2, 5), 3, 7),  # two leading dims, a ragged warp
+        ((5,), 1, 7),  # one block: no lower
+    ],
+)
+def test_block_tridiag_kernel_matches_plain(cuda, lead, F, n, lower):
+    """K5 against the plain loop: in float64 within 1e-10 relative; in
+    float32 no farther from the float64 oracle than twice the float32
+    plain loop; two launches on the same inputs give the same bits."""
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+
+    D, L, rhs = _kkt(cuda, lead, F, n, lower)
+    before = bt.block_tridiag_launches
+    got = bt.block_tridiag_solve(D, L, rhs)
+    torch.cuda.synchronize()
+    assert bt.block_tridiag_launches == before + 1
+    want = bt.block_tridiag_solve_reference(D, L, rhs)
+    assert got.shape == rhs.shape and got.dtype == torch.float64
+    assert _max_rel(got, want) <= K5_RTOL_F64
+
+    D32, r32 = D.float(), rhs.float()
+    L32 = L.float() if lower == "dense" else (-torch.eye(n, device=cuda)).expand(L.shape)  # stride 0 kept
+    oracle = bt.block_tridiag_solve_reference(D32.double(), L32.double(), r32.double())
+    got32 = bt.block_tridiag_solve(D32, L32, r32)
+    plain32 = bt.block_tridiag_solve_reference(D32, L32, r32)
+    err_k5 = float((got32.double() - oracle).abs().max())
+    err_plain = float((plain32.double() - oracle).abs().max())
+    assert got32.dtype == torch.float32 and err_k5 <= 2 * err_plain, (err_k5, err_plain)
+    assert torch.equal(bt.block_tridiag_solve(D32, L32, r32), got32)
+    assert torch.equal(bt.block_tridiag_solve(D, L, rhs), got)
+
+
+def test_block_tridiag_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+
+    D, L, rhs = _kkt(cuda, (3,), 6, 7, "dense")
+    D17, L17, r17 = _kkt(cuda, (3,), 6, 17, "dense")
+    before = bt.block_tridiag_launches
+    with pytest.raises(ValueError):  # n = 17: beyond MAX_UNROLL_N
+        bt.block_tridiag_solve(D17, L17, r17)
+    with pytest.raises(TypeError):
+        bt.block_tridiag_solve(D.half(), L.half(), rhs.half())
+    with pytest.raises(ValueError):  # F = 6 blocks, 4 couplings
+        bt.block_tridiag_solve(D, L[:, :4], rhs)
+    with pytest.raises(ValueError):  # a non-contiguous diag
+        bt.block_tridiag_solve(D.transpose(-1, -2), L, rhs)
+    with pytest.raises(ValueError):  # the right-hand side on the CPU
+        bt.block_tridiag_solve(D, L, rhs.cpu())
+    assert bt.block_tridiag_launches == before
+
+
+def test_block_tridiag_refused_launch_raises(cuda, monkeypatch):
+    """A block the card refuses (2,048 threads) raises from the launch; the
+    wrapper never hands back another path's output."""
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+
+    D, L, rhs = _kkt(cuda, (64,), 12, 7, "solver")
+    monkeypatch.setattr(bt, "K5_THREADS", 2_048)
+    before = bt.block_tridiag_launches
+    with pytest.raises(RuntimeError, match="K5 launch"):
+        bt.block_tridiag_solve(D, L, rhs)
+    assert bt.block_tridiag_launches == before
+    monkeypatch.undo()
+    torch.cuda.synchronize()  # the refusal left no error behind
+    assert _max_rel(bt.block_tridiag_solve(D, L, rhs), bt.block_tridiag_solve_reference(D, L, rhs)) <= K5_RTOL_F64
+
+
+def test_bench_step_launches_k5_once_an_iteration(cuda):
+    """One SolveBench step at B = 32 (3 LM iterations) solves its KKT
+    systems through K5: exactly 3 launches."""
+    from grasptrajopt_tpu_torch import bench as pb
+    from grasptrajopt_tpu_torch.ops import block_tridiag as bt
+    from grasptrajopt_tpu_torch.testing import make_synthetic_gto_robot
+
+    robot = make_synthetic_gto_robot(device=cuda, dtype=torch.float32, points_per_link=8)
+    bench = pb.SolveBench(robot, pb.SolveBenchConfig(batch=32, goal_capacity=2))
+    before = bt.block_tridiag_launches
+    Q, cost, _ = bench.step()
+    torch.cuda.synchronize()
+    assert bt.block_tridiag_launches == before + 3
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(cost).all())
